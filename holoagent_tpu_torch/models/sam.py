@@ -1,0 +1,563 @@
+"""SAM-style promptable segmentation (counterpart of
+holoagent_tpu/models/sam.py): ViT image encoder with windowed attention,
+decomposed relative-position bias and a conv neck; random-Fourier point
+prompt encoder; two-way transformer mask decoder; fixed-budget automatic
+mask generation.
+
+Module and parameter names follow the reference's parameter tree, so a
+state-dict key such as ``encoder.blocks.2.qkv.w`` names the reference's
+``params["encoder"]["blocks"][2]["qkv"]["w"]``.  Matmul weights are
+(in, out).  Parameters live in the working dtype, except the ones the
+reference computes with in float32: the neck's 3x3 convolution and the
+prompt encoder.
+
+Int8 quantization and checkpoint conversion are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..device import DeviceLike, generator, resolve
+from ..ops import masks as mask_ops
+from ..ops.flash_attention import flash_attention_2d, flash_attention_2d_ref
+from ..ops.resize import resize
+from ..utils.timing import StageTimer, stage
+from .transformer import frozen, gelu, layer_norm, linear
+
+
+@dataclass(frozen=True)
+class SAMVariant:
+    name: str
+    img_size: int = 1024
+    patch: int = 16
+    width: int = 768
+    depth: int = 12
+    heads: int = 12
+    global_idx: Tuple[int, ...] = (2, 5, 8, 11)
+    window: int = 14
+    out_chans: int = 256
+    decoder_dim: int = 256
+    decoder_heads: int = 8
+    decoder_depth: int = 2
+    decoder_mlp: int = 2048
+    num_mask_tokens: int = 4
+
+
+VARIANTS = {
+    "vit_b": SAMVariant("vit_b", width=768, depth=12, heads=12, global_idx=(2, 5, 8, 11)),
+    "vit_l": SAMVariant("vit_l", width=1024, depth=24, heads=16, global_idx=(5, 11, 17, 23)),
+    "vit_h": SAMVariant("vit_h", width=1280, depth=32, heads=16, global_idx=(7, 15, 23, 31)),
+    "test-tiny": SAMVariant(
+        "test-tiny", img_size=64, patch=16, width=64, depth=2, heads=2,
+        global_idx=(1,), window=2, out_chans=32, decoder_dim=32,
+        decoder_heads=2, decoder_mlp=64,
+    ),
+    "fixture-tiny": SAMVariant(
+        "fixture-tiny", img_size=128, patch=8, width=64, depth=3, heads=2,
+        global_idx=(2,), window=4, out_chans=32, decoder_dim=32,
+        decoder_heads=2, decoder_mlp=128,
+    ),
+}
+
+# SAM pixel normalization (ImageNet stats, applied to [0,255])
+PIXEL_MEAN = (123.675, 116.28, 103.53)
+PIXEL_STD = (58.395, 57.12, 57.375)
+
+
+def _ln(x, g, b, eps: float = 1e-6):
+    return layer_norm(x, g, b, eps)
+
+
+def _param(shape, kw) -> nn.Parameter:
+    return frozen(torch.zeros(shape, **kw))
+
+
+class Lin(nn.Module):
+    """A linear layer as the reference stores it: w (din, dout), b (dout,)."""
+
+    def __init__(self, din: int, dout: int, kw):
+        super().__init__()
+        self.w = _param((din, dout), kw)
+        self.b = _param((dout,), kw)
+
+    def forward(self, x):
+        return linear(x, self.w, self.b)
+
+
+# ---------------------------------------------------------------------------
+# Image encoder
+# ---------------------------------------------------------------------------
+
+
+class EncoderBlock(nn.Module):
+    def __init__(self, v: SAMVariant, n: int, kw):
+        super().__init__()
+        hd = v.width // v.heads
+        self.norm1_g = _param((v.width,), kw)
+        self.norm1_b = _param((v.width,), kw)
+        self.qkv = Lin(v.width, 3 * v.width, kw)
+        self.proj = Lin(v.width, v.width, kw)
+        self.rel_h = _param((2 * n - 1, hd), kw)
+        self.rel_w = _param((2 * n - 1, hd), kw)
+        self.norm2_g = _param((v.width,), kw)
+        self.norm2_b = _param((v.width,), kw)
+        self.lin1 = Lin(v.width, 4 * v.width, kw)
+        self.lin2 = Lin(4 * v.width, v.width, kw)
+
+
+class ImageEncoder(nn.Module):
+    def __init__(self, v: SAMVariant, kw):
+        super().__init__()
+        g = v.img_size // v.patch
+        self.patch_w = _param((v.patch * v.patch * 3, v.width), kw)
+        self.patch_b = _param((v.width,), kw)
+        self.pos = _param((g, g, v.width), kw)
+        self.blocks = nn.ModuleList(
+            EncoderBlock(v, g if i in v.global_idx else v.window, kw) for i in range(v.depth)
+        )
+        self.neck_conv1 = _param((1, 1, v.width, v.out_chans), kw)
+        self.neck_ln1_g = _param((v.out_chans,), kw)
+        self.neck_ln1_b = _param((v.out_chans,), kw)
+        f32 = dict(kw, dtype=torch.float32)
+        self.neck_conv2 = _param((3, 3, v.out_chans, v.out_chans), f32)
+        self.neck_ln2_g = _param((v.out_chans,), kw)
+        self.neck_ln2_b = _param((v.out_chans,), kw)
+
+
+def _rel_pos_bias(q_hw: int, rel_table: torch.Tensor) -> torch.Tensor:
+    """(2n-1, hd) table -> (q, q, hd) relative embeddings for square attn."""
+    coords = torch.arange(q_hw, device=rel_table.device)
+    return rel_table[coords[:, None] - coords[None, :] + (q_hw - 1)]
+
+
+def _attention_2d(x: torch.Tensor, blk: EncoderBlock, heads: int, impl: str = "xla") -> torch.Tensor:
+    """Attention over a (B, H, W, C) tile with decomposed rel-pos.
+    impl="flash": kernel K1; "xla": its plain version (the same math)."""
+    b, h, w, c = x.shape
+    hd = c // heads
+    n = h * w
+    qkv = blk.qkv(x).reshape(b, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    q, k, val = qkv[0], qkv[1], qkv[2]  # (B, heads, N, hd)
+    # bias[n, m] = q_n . rel_h[y(n) - y(m)] + q_n . rel_w[x(n) - x(m)], in f32
+    rh = _rel_pos_bias(h, blk.rel_h).float()
+    rw = _rel_pos_bias(w, blk.rel_w).float()
+    qg = q.reshape(b, heads, h, w, hd).float()
+    bias_h = torch.einsum("bhywd,ykd->bhywk", qg, rh).reshape(b * heads, n, h)
+    bias_w = torch.einsum("bhywd,wkd->bhywk", qg, rw).reshape(b * heads, n, w)
+    attend = {"flash": flash_attention_2d, "xla": flash_attention_2d_ref}.get(impl)
+    if attend is None:
+        raise ValueError(f"impl must be 'flash' or 'xla', got {impl!r}")
+    out = attend(
+        q.reshape(b * heads, n, hd), k.reshape(b * heads, n, hd), val.reshape(b * heads, n, hd),
+        bias_h, bias_w, grid_hw=(h, w),
+    )
+    out = out.reshape(b, heads, n, hd).permute(0, 2, 1, 3).reshape(b, h, w, c)
+    return blk.proj(out)
+
+
+def _window_partition(x: torch.Tensor, win: int):
+    b, h, w, c = x.shape
+    ph = (win - h % win) % win
+    pw = (win - w % win) % win
+    x = F.pad(x, (0, 0, 0, pw, 0, ph))
+    hp, wp = h + ph, w + pw
+    x = x.reshape(b, hp // win, win, wp // win, win, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, win, win, c), (hp, wp)
+
+
+def _window_unpartition(x: torch.Tensor, win: int, padded, orig):
+    hp, wp = padded
+    h, w = orig
+    b = x.shape[0] // ((hp // win) * (wp // win))
+    x = x.reshape(b, hp // win, wp // win, win, win, -1).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, hp, wp, -1)[:, :h, :w]
+
+
+@torch.no_grad()
+def encode_image(enc: ImageEncoder, images: torch.Tensor, v: SAMVariant, impl: str = "xla") -> torch.Tensor:
+    """(B, S, S, 3) normalized image -> (B, g, g, out_chans) embedding, in
+    the encoder's dtype.  impl="flash" runs every attention layer, windowed
+    and global, through kernel K1."""
+    dtype = enc.patch_w.dtype
+    b, s, _, _ = images.shape
+    p = v.patch
+    g = s // p
+    x = images.reshape(b, g, p, g, p, 3).permute(0, 1, 3, 2, 4, 5).reshape(b, g, g, -1)
+    x = linear(x.to(dtype), enc.patch_w, enc.patch_b) + enc.pos
+    for i, blk in enumerate(enc.blocks):
+        shortcut = x
+        xn = _ln(x, blk.norm1_g, blk.norm1_b)
+        if i in v.global_idx:
+            att = _attention_2d(xn, blk, v.heads, impl=impl)
+        else:
+            xw, padded = _window_partition(xn, v.window)
+            aw = _attention_2d(xw, blk, v.heads, impl=impl)
+            att = _window_unpartition(aw, v.window, padded, (g, g))
+        x = shortcut + att
+        xn = _ln(x, blk.norm2_g, blk.norm2_b)
+        hmid = gelu(blk.lin1(xn).float()).to(dtype)
+        x = x + blk.lin2(hmid)
+    # neck: 1x1 conv -> LN -> 3x3 conv (float32) -> LN, channel-last
+    x = linear(x, enc.neck_conv1.reshape(enc.neck_conv1.shape[2], -1))
+    x = _ln(x, enc.neck_ln1_g, enc.neck_ln1_b)
+    w2 = enc.neck_conv2.permute(3, 2, 0, 1)  # HWIO -> OIHW
+    x = F.conv2d(x.float().permute(0, 3, 1, 2), w2, padding=1).permute(0, 2, 3, 1).to(dtype)
+    return _ln(x, enc.neck_ln2_g, enc.neck_ln2_b)
+
+
+# ---------------------------------------------------------------------------
+# Prompt encoder
+# ---------------------------------------------------------------------------
+
+
+class PromptEncoder(nn.Module):
+    """Float32 throughout, as the reference computes it."""
+
+    def __init__(self, v: SAMVariant, kw):
+        super().__init__()
+        d = v.decoder_dim
+        f32 = dict(kw, dtype=torch.float32)
+        self.gauss = _param((2, d // 2), f32)
+        self.point_pos = _param((d,), f32)
+        self.point_neg = _param((d,), f32)
+        self.not_a_point = _param((d,), f32)
+        self.no_mask = _param((d,), f32)
+
+
+def _fourier_pe(coords01: torch.Tensor, gauss: torch.Tensor) -> torch.Tensor:
+    """(..., 2) in [0,1] -> (..., D) random Fourier features."""
+    c = coords01 * 2.0 - 1.0
+    proj = (2 * math.pi) * (c @ gauss)
+    return torch.cat([torch.sin(proj), torch.cos(proj)], dim=-1)
+
+
+def image_pe(prompt: PromptEncoder, g: int) -> torch.Tensor:
+    """Dense positional encoding of the (g, g) embedding grid -> (g, g, D)."""
+    t = (torch.arange(g, dtype=torch.float32, device=prompt.gauss.device) + 0.5) / g
+    gy, gx = torch.meshgrid(t, t, indexing="ij")
+    return _fourier_pe(torch.stack([gx, gy], dim=-1), prompt.gauss)
+
+
+def encode_points(prompt: PromptEncoder, points01: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """points01 (P, K, 2) xy in [0,1], labels (P, K) in {-1, 0, 1} ->
+    (P, K, D) sparse prompt tokens."""
+    pe = _fourier_pe(points01, prompt.gauss)
+    pe = torch.where((labels == -1)[..., None], torch.zeros_like(pe), pe)
+    emb = torch.where(
+        (labels == 1)[..., None],
+        prompt.point_pos,
+        torch.where((labels == 0)[..., None], prompt.point_neg, prompt.not_a_point),
+    )
+    return pe + emb
+
+
+# ---------------------------------------------------------------------------
+# Mask decoder (two-way transformer)
+# ---------------------------------------------------------------------------
+
+
+class Attn(nn.Module):
+    def __init__(self, dq: int, dkv: int, dint: int, kw):
+        super().__init__()
+        self.q = Lin(dq, dint, kw)
+        self.k = Lin(dkv, dint, kw)
+        self.v = Lin(dkv, dint, kw)
+        self.o = Lin(dint, dq, kw)
+
+
+class MLP3(nn.Module):
+    def __init__(self, d: int, dout: int, kw):
+        super().__init__()
+        self.l1 = Lin(d, d, kw)
+        self.l2 = Lin(d, d, kw)
+        self.l3 = Lin(d, dout, kw)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, v: SAMVariant, kw):
+        super().__init__()
+        d = v.decoder_dim
+        di = d // 2
+        self.self_attn = Attn(d, d, d, kw)
+        self.norm1_g = _param((d,), kw)
+        self.norm1_b = _param((d,), kw)
+        self.cross_t2i = Attn(d, d, di, kw)
+        self.norm2_g = _param((d,), kw)
+        self.norm2_b = _param((d,), kw)
+        self.mlp1 = Lin(d, v.decoder_mlp, kw)
+        self.mlp2 = Lin(v.decoder_mlp, d, kw)
+        self.norm3_g = _param((d,), kw)
+        self.norm3_b = _param((d,), kw)
+        self.cross_i2t = Attn(d, d, di, kw)
+        self.norm4_g = _param((d,), kw)
+        self.norm4_b = _param((d,), kw)
+
+
+class MaskDecoder(nn.Module):
+    def __init__(self, v: SAMVariant, kw):
+        super().__init__()
+        d = v.decoder_dim
+        up1, up2 = d // 4, d // 8
+        nm = v.num_mask_tokens
+        self.iou_token = _param((d,), kw)
+        self.mask_tokens = _param((nm, d), kw)
+        self.layers = nn.ModuleList(DecoderLayer(v, kw) for _ in range(v.decoder_depth))
+        self.final_t2i = Attn(d, d, d // 2, kw)
+        self.norm_final_g = _param((d,), kw)
+        self.norm_final_b = _param((d,), kw)
+        self.up1_w = _param((2, 2, d, up1), kw)
+        self.up1_b = _param((up1,), kw)
+        self.up_ln_g = _param((up1,), kw)
+        self.up_ln_b = _param((up1,), kw)
+        self.up2_w = _param((2, 2, up1, up2), kw)
+        self.up2_b = _param((up2,), kw)
+        self.hyper = nn.ModuleList(MLP3(d, up2, kw) for _ in range(nm))
+        self.iou_head = MLP3(d, nm, kw)
+
+
+def _attn(p: Attn, q, k, v, heads: int):
+    """Multi-head attention over token sequences (B, N, D), float32 scores."""
+    dint = p.q.w.shape[1]
+    hd = dint // heads
+    qh = p.q(q).reshape(*q.shape[:2], heads, hd)
+    kh = p.k(k).reshape(*k.shape[:2], heads, hd)
+    vh = p.v(v).reshape(*v.shape[:2], heads, hd)
+    a = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float()) * hd**-0.5
+    pr = torch.softmax(a, dim=-1).to(q.dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", pr.float(), vh.float()).to(q.dtype)
+    return p.o(o.reshape(*q.shape[:2], dint))
+
+
+def _mlp3(p: MLP3, x, act=torch.relu):
+    for lin in (p.l1, p.l2):
+        x = act(lin(x).float()).to(x.dtype)
+    return p.l3(x)
+
+
+def _upscale(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Kernel-2 stride-2 transposed conv as one matmul: out[2i+di, 2j+dj] =
+    x[i, j] @ w[1-di, 1-dj] (the transposed conv flips its kernel)."""
+    n, gh, gw, cin = x.shape
+    co = w.shape[-1]
+    wm = w.flip(0, 1).permute(2, 0, 1, 3).reshape(cin, 4 * co)
+    y = linear(x, wm).reshape(n, gh, gw, 2, 2, co).permute(0, 1, 3, 2, 4, 5)
+    return y.reshape(n, 2 * gh, 2 * gw, co) + b.to(x.dtype)
+
+
+def decode_masks(
+    dec: MaskDecoder,
+    image_emb: torch.Tensor,  # (g, g, D) single image
+    img_pe: torch.Tensor,  # (g, g, D)
+    prompt_tokens: torch.Tensor,  # (P, K, D)
+    no_mask_emb: torch.Tensor,  # (D,)
+    v: SAMVariant,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched over P prompts sharing one image embedding.  Returns
+    (mask_logits (P, nm, 4g, 4g) f32, iou_pred (P, nm) f32)."""
+    g = image_emb.shape[0]
+    d = v.decoder_dim
+    pcount = prompt_tokens.shape[0]
+    dtype = image_emb.dtype
+    nm = v.num_mask_tokens
+    out_tokens = torch.cat([dec.iou_token[None], dec.mask_tokens], dim=0).to(dtype)
+    tokens = torch.cat([out_tokens.expand(pcount, nm + 1, d), prompt_tokens.to(dtype)], dim=1)
+    src = (image_emb + no_mask_emb).reshape(1, g * g, d).expand(pcount, g * g, d).to(dtype)
+    pos = img_pe.reshape(1, g * g, d).expand(pcount, g * g, d).to(dtype)
+    q = tokens
+    heads = v.decoder_heads
+    for i, lp in enumerate(dec.layers):
+        if i == 0:
+            q = q + _attn(lp.self_attn, q, q, q, heads)
+        else:
+            qp = q + tokens
+            q = q + _attn(lp.self_attn, qp, qp, q, heads)
+        q = _ln(q, lp.norm1_g, lp.norm1_b)
+        q = q + _attn(lp.cross_t2i, q + tokens, src + pos, src, heads)
+        q = _ln(q, lp.norm2_g, lp.norm2_b)
+        h = torch.relu(lp.mlp1(q).float()).to(dtype)
+        q = q + lp.mlp2(h)
+        q = _ln(q, lp.norm3_g, lp.norm3_b)
+        src = src + _attn(lp.cross_i2t, src + pos, q + tokens, q, heads)
+        src = _ln(src, lp.norm4_g, lp.norm4_b)
+    q = q + _attn(dec.final_t2i, q + tokens, src + pos, src, heads)
+    q = _ln(q, dec.norm_final_g, dec.norm_final_b)
+
+    iou_out = q[:, 0]
+    mask_toks = q[:, 1 : nm + 1]
+    srcg = src.reshape(pcount, g, g, d)
+    u = _upscale(srcg, dec.up1_w, dec.up1_b)
+    u = gelu(_ln(u, dec.up_ln_g, dec.up_ln_b))
+    u = gelu(_upscale(u, dec.up2_w, dec.up2_b))  # (P, 4g, 4g, up2)
+    hyper = torch.stack([_mlp3(hp, mask_toks[:, i]) for i, hp in enumerate(dec.hyper)], dim=1)
+    logits = torch.einsum("pnc,phwc->pnhw", hyper.float(), u.float())
+    iou_pred = _mlp3(dec.iou_head, iou_out).float()
+    return logits, iou_pred
+
+
+# ---------------------------------------------------------------------------
+# Full model + automatic mask generation
+# ---------------------------------------------------------------------------
+
+
+class SAM(nn.Module):
+    """Image encoder + prompt encoder + mask decoder, in the working dtype
+    (see the module docstring for the float32 exceptions)."""
+
+    def __init__(self, v: SAMVariant, dtype=torch.float32, device: DeviceLike = None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=resolve(device))
+        self.variant = v
+        self.encoder = ImageEncoder(v, kw)
+        self.prompt = PromptEncoder(v, kw)
+        self.decoder = MaskDecoder(v, kw)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.encoder.patch_w.dtype
+
+
+def _fill(p: torch.Tensor, gen: torch.Generator, std: Optional[float] = None, value: float = 0.0):
+    with torch.no_grad():
+        if std is None:
+            p.fill_(value)
+        else:
+            p.copy_(torch.randn(p.shape, generator=gen, dtype=torch.float32) * std)
+
+
+def _init_lin(lin: Lin, gen: torch.Generator) -> None:
+    _fill(lin.w, gen, std=lin.w.shape[0] ** -0.5)
+    _fill(lin.b, gen)
+
+
+def init_sam(v: SAMVariant, seed: int = 0, dtype=torch.float32, device: DeviceLike = None) -> SAM:
+    """Random SAM from a seeded torch.Generator, with the reference's
+    ``init_sam`` shapes and scales (values differ from JAX's)."""
+    gen = generator(seed)
+    m = SAM(v, dtype=dtype, device=device)
+    for name, p in m.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf.endswith("_g"):
+            _fill(p, gen, value=1.0)
+        elif leaf.endswith("_b") or leaf in ("b", "patch_b"):
+            _fill(p, gen)
+    enc, dec, pr = m.encoder, m.decoder, m.prompt
+    for blk in enc.blocks:
+        for lin in (blk.qkv, blk.proj, blk.lin1, blk.lin2):
+            _init_lin(lin, gen)
+        _fill(blk.rel_h, gen, std=0.02)
+        _fill(blk.rel_w, gen, std=0.02)
+    _fill(enc.patch_w, gen, std=v.width**-0.5)
+    _fill(enc.pos, gen, std=0.02)
+    _fill(enc.neck_conv1, gen, std=v.width**-0.5)
+    _fill(enc.neck_conv2, gen, std=(9 * v.out_chans) ** -0.5)
+    _fill(pr.gauss, gen, std=1.0)
+    for p in (pr.point_pos, pr.point_neg, pr.not_a_point, pr.no_mask, dec.iou_token, dec.mask_tokens):
+        _fill(p, gen, std=0.02)
+    for mod in dec.modules():
+        if isinstance(mod, Lin):
+            _init_lin(mod, gen)
+    d = v.decoder_dim
+    _fill(dec.up1_w, gen, std=d**-0.5)
+    _fill(dec.up2_w, gen, std=(d // 4) ** -0.5)
+    return m
+
+
+def preprocess(images01: torch.Tensor, img_size: int) -> torch.Tensor:
+    """(B, H, W, 3) in [0,1] -> (B, img_size, img_size, 3) normalized."""
+    x = resize(images01, (images01.shape[0], img_size, img_size, 3), "linear")
+    mean = torch.tensor(PIXEL_MEAN, dtype=x.dtype, device=x.device) / 255.0
+    std = torch.tensor(PIXEL_STD, dtype=x.dtype, device=x.device) / 255.0
+    return (x - mean) / std
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` order: descending, ties to the lower index."""
+    vals, idx = torch.sort(x, descending=True, stable=True)
+    return vals[:k], idx[:k]
+
+
+@torch.no_grad()
+def generate_masks(
+    sam: SAM,
+    image01: torch.Tensor,  # (H, W, 3) float in [0,1]
+    points_per_side: int = 12,
+    pred_iou_thresh: float = 0.88,
+    stability_thresh: float = 0.95,
+    min_area: float = 100.0,
+    nms_iou: float = 0.7,
+    max_masks: int = 64,
+    mask_hw: Optional[Tuple[int, int]] = None,
+    impl: str = "xla",
+    timer: Optional[StageTimer] = None,
+):
+    """Automatic mask generation, fixed budget.  Returns a dict: masks
+    (max_masks, H', W') bool, logits, scores, boxes (max_masks, 4), valid,
+    num.  H'xW' = `mask_hw` or the input resolution.  A `timer` records the
+    sub-stages mask.encoder, mask.decoder, mask.nms and mask.select."""
+    v = sam.variant
+    dev = image01.device
+    h, w, _ = image01.shape
+    mask_hw = mask_hw or (h, w)
+    with stage(timer, "mask.encoder"):
+        x = preprocess(image01[None], v.img_size)
+        emb = encode_image(sam.encoder, x, v, impl=impl)[0]  # (g, g, D)
+    with stage(timer, "mask.decoder"):
+        logits, iou_pred = _decode_grid(sam, emb, points_per_side)
+    with stage(timer, "mask.nms"):
+        # multimask: drop token 0 (single-mask head), keep 1..3
+        logits = logits[:, 1:].reshape(-1, logits.shape[-2], logits.shape[-1])
+        scores = iou_pred[:, 1:].reshape(-1)
+        lh, lw = logits.shape[-2], logits.shape[-1]
+        area_scale = (mask_hw[0] * mask_hw[1]) / float(lh * lw)
+        stab = mask_ops.stability_scores(logits)
+        bin_lo = logits > 0.0
+        areas = mask_ops.mask_areas(bin_lo) * area_scale
+        ok = (scores > pred_iou_thresh) & (stab > stability_thresh) & (areas > min_area)
+        boxes_lo = mask_ops.boxes_from_masks(bin_lo)
+        keep = mask_ops.nms(boxes_lo, scores, ok, nms_iou)
+    with stage(timer, "mask.select"):
+        sel_scores = torch.where(keep, scores, torch.full_like(scores, float("-inf")))
+        top_s, top_i = top_k(sel_scores, max_masks)
+        out_valid = torch.isfinite(top_s)
+        logits_k = resize(logits[top_i], (max_masks, mask_hw[0], mask_hw[1]), "linear")
+        binm = logits_k > 0.0
+        sx = mask_hw[1] / float(lw)
+        sy = mask_hw[0] / float(lh)
+        boxes = boxes_lo[top_i] * torch.tensor([sx, sy, sx, sy], dtype=boxes_lo.dtype, device=dev)
+    return {
+        "masks": binm & out_valid[:, None, None],
+        "logits": logits_k,
+        "scores": torch.where(out_valid, top_s, torch.zeros_like(top_s)),
+        "boxes": boxes,
+        "valid": out_valid,
+        "num": out_valid.sum().to(torch.int32),
+    }
+
+
+def _decode_grid(sam: SAM, emb: torch.Tensor, points_per_side: int):
+    """Decode the points_per_side^2 grid of one-point prompts (plus a padding
+    point each, the SAM convention) against one image embedding."""
+    v = sam.variant
+    dev = emb.device
+    g = emb.shape[0]
+    pe = image_pe(sam.prompt, g).to(emb.dtype)
+
+    pps = points_per_side
+    t = (torch.arange(pps, dtype=torch.float32, device=dev) + 0.5) / pps
+    gy, gx = torch.meshgrid(t, t, indexing="ij")
+    pts = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)  # (P, 2) xy
+    pcount = pps * pps
+    points = torch.stack([pts, torch.zeros_like(pts)], dim=1)  # (P, 2, 2)
+    labels = torch.stack(
+        [torch.ones(pcount, dtype=torch.int32, device=dev), -torch.ones(pcount, dtype=torch.int32, device=dev)],
+        dim=1,
+    )
+    sparse = encode_points(sam.prompt, points, labels).to(emb.dtype)
+    return decode_masks(sam.decoder, emb, pe, sparse, sam.prompt.no_mask.to(emb.dtype), v)

@@ -1,0 +1,92 @@
+"""The port stands alone: holoagent_tpu_torch and chip_smoke.py import
+neither JAX nor the JAX package (nor PyYAML, which the card machine lacks),
+and an entry point not asked for the CPU refuses to run without CUDA."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import holoagent_tpu_torch
+from holoagent_tpu_torch import device as tdevice
+from holoagent_tpu_torch.config import from_dict
+from holoagent_tpu_torch.memory.mapping import Mapper
+from holoagent_tpu_torch.models import clip as tclip
+from holoagent_tpu_torch.models import sam as tsam
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = Path(holoagent_tpu_torch.__file__).resolve().parent
+FORBIDDEN = ("jax", "jaxlib", "holoagent_tpu", "yaml")
+
+
+def _port_sources():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_no_forbidden_import_in_the_source():
+    bad = []
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                bad += [(path.name, a.name) for a in node.names if _forbidden(a.name)]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                if _forbidden(node.module):
+                    bad.append((path.name, node.module))
+    assert not bad, bad
+
+
+def test_imports_with_jax_blocked():
+    """Import every module of the port, and chip_smoke, in a process where
+    `import jax`, `import holoagent_tpu` and `import yaml` fail."""
+    code = (
+        "import sys, importlib, pkgutil\n"
+        f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import holoagent_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'holoagent_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
+        "print(len(mods))\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) >= 20
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tdevice.resolve()
+    with pytest.raises(RuntimeError):
+        tclip.CLIPVisual(tclip.VARIANTS["test-tiny"])
+    with pytest.raises(RuntimeError):
+        tsam.init_sam(tsam.VARIANTS["test-tiny"])
+    clip = tclip.init_clip_visual(tclip.VARIANTS["test-tiny"], device="cpu")
+    sam = tsam.init_sam(tsam.VARIANTS["test-tiny"], device="cpu")
+    cfg = from_dict({"models": {"clip": {"type": "test-tiny", "dtype": "float32"}, "sam": {"type": "test-tiny"}}})
+    with pytest.raises(RuntimeError):
+        Mapper(cfg, clip, sam)
+    assert tdevice.resolve("cpu").type == "cpu"
+
+
+def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
+    """No CUDA here: exit non-zero with no result line; a directory holding
+    only chip_smoke.py fails as well."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], capture_output=True, text=True,
+                       timeout=300, env=env, cwd=ROOT)
+    assert r.returncode != 0 and '"ok"' not in r.stdout
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True, text=True, timeout=300,
+                       env=env, cwd=tmp_path)
+    assert r.returncode != 0 and '"ok"' not in r.stdout
