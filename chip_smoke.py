@@ -4,47 +4,63 @@
 
 Phases (any failure exits non-zero, with no result line):
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: compile the hand-written attention kernels (nvcc, sm_90a) from
-     holoagent_tpu_torch/csrc into holoagent_tpu_torch/_build;
+  2. build: compile the hand-written kernels (nvcc, sm_90a), one nvcc per
+     source under holoagent_tpu_torch/csrc, all started together, into
+     holoagent_tpu_torch/_build;
   3. kernels: hold each kernel against its plain PyTorch version at the
-     mapping path's shapes, to a limit set by each case's own output scale
-     that a plain version with a dropped key tile fails; time kernel, plain
-     version and the one PyTorch library call computing the same function
-     (a yardstick only);
+     mapping path's shapes and show that the check rejects plain versions
+     with a deliberate fault; time kernel, plain version and the one PyTorch
+     library call computing the same function (a yardstick only).  K1/K2
+     (attention) are held to a limit set by each case's own output scale;
+     K3 (W8A8 linear) to one ulp of its output dtype;
   4. towers: at full width, hold the SAM and CLIP encoders through the
-     kernels against the same encoders through the plain versions;
-  5. main path: Mapper.run + finalize over posed 640x480 frames of the
-     synthetic three-room scene, SAM vit_b + CLIP ViT-L/14 in bf16 from a
-     seeded generator, at the settings of config/synthetic_tpu_3room.yaml;
-     per-stage ms, frames/s, peak memory; the kernels' launch counts and
-     their device time inside the run.
+     kernels against the same encoders through the plain versions, in bf16
+     and as W8A8 towers (CLIP in both qmm modes);
+  5. main paths, each with every launch count set to 0 just before it and
+     read just after: Mapper.run + finalize over posed 640x480 frames of the
+     synthetic three-room scene, SAM vit_b + CLIP ViT-L/14 from a seeded
+     generator at the settings of config/synthetic_tpu_3room.yaml, (a) in
+     bf16, (b) with W8A8 towers from apps.common.load_models (the
+     reference Mapper's int8 path, qmm="xla"); then (c) the W8A8 tiered
+     extraction with clip_qmm="pallas" on each keyframe.  Per-stage ms,
+     frames/s or ms/keyframe, peak memory; the kernels' launch counts and
+     their device time inside each run.
 Prints one JSON line of kernels, then the nvidia-smi line, then as the last
 line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from holoagent_tpu_torch.apps.common import load_models  # noqa: E402
 from holoagent_tpu_torch.config import from_dict  # noqa: E402
 from holoagent_tpu_torch.dataloader import SyntheticDataset, SyntheticScene  # noqa: E402
 from holoagent_tpu_torch.memory.mapping import Mapper  # noqa: E402
 from holoagent_tpu_torch.models import clip as clip_mod  # noqa: E402
 from holoagent_tpu_torch.models import sam as sam_mod  # noqa: E402
+from holoagent_tpu_torch.models import transformer as tfm  # noqa: E402
 from holoagent_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from holoagent_tpu_torch.ops import quant_matmul as qm  # noqa: E402
+from holoagent_tpu_torch.perception.extractor import extract_frame_features_tiered  # noqa: E402
 from holoagent_tpu_torch.utils.timing import StageTimer  # noqa: E402
 
-# H100 SXM published peaks (dense bf16 tensor cores, HBM3)
+# H100 SXM published peaks (dense tensor cores: bf16, int8; HBM3)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 # Kernel vs plain version.  Both take bf16 inputs, accumulate in f32 and
 # round the output to bf16; they differ by where the probabilities are
@@ -58,6 +74,17 @@ PEAK_BYTES = 3.35e12
 # kernel that skips a tile or part of the bias cannot pass.
 MAX_ERR_OF_MAX = 2.0**-6
 REL_RMS_TOL = 2.0**-7
+# K3 vs plain version: the kernel does the plain version's arithmetic
+# operation for operation (the same f32 row scale, IEEE division, rounding
+# half to even, an exact integer sum, and the epilogue's three roundings with
+# no FMA contraction), so bit equality is expected.  The limit is one ulp of
+# the output dtype: the least that admits one rounding taken the other way
+# in the epilogue.  Any fault in the quantization or a dropped K slice moves
+# outputs by many ulps, and the same check must reject two such plain
+# versions: x's last 32-wide K slice zeroed, and one per-tensor activation
+# scale in place of the per-row scales.
+K3_MAX_ULPS = 1
+TYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 FRAMES = 12  # rendered poses; every 2nd is a keyframe (skip_frames 2) -> 6
 SEED = 0
 
@@ -112,8 +139,10 @@ def time_ms(fn, samples: int = 10, reps: int = 10) -> float:
     return statistics.median(out)
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(ops: float, nbytes: float, peak_ops: float):
+    """The least time in ms: the larger of ops at `peak_ops` and bytes at
+    the memory rate."""
+    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -172,7 +201,7 @@ def k1_case(name, bh, g, gen):
     )
     flops = 4.0 * n * n * d * bh
     nbytes = 4 * bh * n * d * 2 + bh * n * 2 * g * 4
-    res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+    res["bound_ms"], res["bound_by"] = bound(flops, nbytes, PEAK_BF16_FLOPS)
     del mask
     return res
 
@@ -196,8 +225,92 @@ def k2_case(name, b, h, t, causal, gen):
         library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=causal)),
     )
     pairs = t * (t + 1) / 2 if causal else t * t  # key/query pairs this input needs
-    res["bound_ms"], res["bound_by"] = bound(4.0 * pairs * d * b * h, 4 * b * h * t * d * 2)
+    res["bound_ms"], res["bound_by"] = bound(4.0 * pairs * d * b * h, 4 * b * h * t * d * 2, PEAK_BF16_FLOPS)
     return res
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in units in the last place between two tensors of
+    one float dtype (bf16 or f32): bit patterns mapped onto a monotone
+    integer line, so +0 and -0 coincide and neighbours differ by 1."""
+    bits, mag = (torch.int16, 0x7FFF) if a.dtype == torch.bfloat16 else (torch.int32, 0x7FFFFFFF)
+
+    def line(t):
+        i = t.contiguous().view(bits).long()
+        return torch.where(i < 0, -(i & mag), i)
+
+    return int((line(a) - line(b)).abs().max())
+
+
+def k3_case(name, m, k, n, x_dtype, out_dtype, gen):
+    """One K3 shape: x like a tower's activations, weights quantized from a
+    1/sqrt(K)-scaled normal matrix by the port's quantize_weight_int8,
+    biases in the input's dtype as the towers keep them."""
+    x = torch.randn(m, k, generator=gen, device="cuda").to(x_dtype)
+    w_q, w_s = tfm.quantize_weight_int8(torch.randn(k, n, generator=gen, device="cuda") * k**-0.5)
+    w_q = w_q.t().contiguous()
+    bias = (0.1 * torch.randn(n, generator=gen, device="cuda")).to(x_dtype)
+    out = qm.quant_matmul(x, w_q, w_s, bias, out_dtype=out_dtype)
+    ref = qm.quant_matmul_ref(x, w_q, w_s, bias, out_dtype)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+    err = ulps(out, ref)
+    mismatched = int((out != ref).sum())
+    max_abs = (out.float() - ref.float()).abs().max().item()
+    check(err <= K3_MAX_ULPS, f"{name}: {err} ulps from the plain version ({mismatched} outputs differ), "
+          f"limit {K3_MAX_ULPS}")
+    x_cut = x.clone()
+    x_cut[:, -32:] = 0
+    xf = x.float()
+    a_t = torch.clamp(xf.abs().amax() * qm.INV_127, min=qm.SCALE_FLOOR).reshape(1, 1)
+    per_tensor = qm.dequantize(torch.clamp(torch.round(xf / a_t), -127.0, 127.0), a_t, w_q, w_s, bias, out_dtype)
+    mutants = {}
+    for what, bad in (("x's last 32-wide K slice zeroed", qm.quant_matmul_ref(x_cut, w_q, w_s, bias, out_dtype)),
+                      ("one per-tensor activation scale", per_tensor)):
+        mutants[what] = ulps(bad, ref)
+        check(mutants[what] > K3_MAX_ULPS, f"{name}: the check would pass a plain version with {what}")
+    x_q8 = qm.quantize_rows(x)[0].to(torch.int8)
+    w_t = w_q.t()
+    res = dict(
+        kernel="quant_matmul", key=(m, k, n, TYPE_NAMES[x_dtype], TYPE_NAMES[out_dtype]), name=name,
+        shape=f"M={m} K={k} N={n} {TYPE_NAMES[x_dtype]}->{TYPE_NAMES[out_dtype]}",
+        max_abs_err=max_abs, max_ulps=err, outputs_differing=mismatched, mutant_ulps=mutants,
+        ms=time_ms(lambda: qm.quant_matmul(x, w_q, w_s, bias, out_dtype=out_dtype)),
+        plain_ms=time_ms(lambda: qm.quant_matmul_ref(x, w_q, w_s, bias, out_dtype), samples=5, reps=2),
+        library_ms=time_ms(lambda: torch._int_mm(x_q8, w_t)),
+    )
+    nbytes = m * k * x.element_size() + n * k + 2 * n * 4 + m * n * out.element_size()
+    res["bound_ms"], res["bound_by"] = bound(2.0 * m * n * k, nbytes, PEAK_INT8_OPS)
+    return res
+
+
+def k3_phase():
+    """Every shape the W8A8 paths give K3, both output dtypes, and a ragged
+    M.  CLIP ViT-L/14: M = 257 * (2 * tier + 1); qkv, out proj, fc1, fc2;
+    fc1 also with f32 output (the qmm="xla" path keeps it f32 into the
+    GELU).  SAM vit_b: M = 4096 (global) and 4900 (25 windows); qkv, proj,
+    lin1, lin2; lin1 also with f32 output."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = []
+    for tier in (16, 32, 64):
+        m = 257 * (2 * tier + 1)
+        for k, n in ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)):
+            cases.append(k3_case(f"k3_clip_t{tier}_{k}x{n}", m, k, n, bf, bf, gen))
+        cases.append(k3_case(f"k3_clip_t{tier}_1024x4096_f32", m, 1024, 4096, bf, f32, gen))
+    for m, where in ((4096, "global"), (4900, "windows")):
+        for k, n in ((768, 2304), (768, 768), (768, 3072), (3072, 768)):
+            cases.append(k3_case(f"k3_sam_{where}_{k}x{n}", m, k, n, bf, bf, gen))
+        cases.append(k3_case(f"k3_sam_{where}_768x3072_f32", m, 768, 3072, bf, f32, gen))
+    cases.append(k3_case("k3_ragged_m77", 77, 1024, 1024, bf, bf, gen))
+    cases.append(k3_case("k3_ragged_m77_f32in", 77, 1024, 1024, f32, f32, gen))
+    for c in cases:
+        log(f"[kernel] {c['name']:28s} {c['shape']:32s} {c['max_ulps']} ulps ({c['outputs_differing']} outputs "
+            f"differ, max abs err {c['max_abs_err']:.3e}); mutants rejected at "
+            f"{', '.join(f'{v} ulps' for v in c['mutant_ulps'].values())}; "
+            f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  _int_mm {c['library_ms']:.4f} ms  "
+            f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+    return cases
 
 
 def kernel_phases():
@@ -216,24 +329,56 @@ def kernel_phases():
             f"tol {REL_RMS_TOL:.3e}) "
             f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  library {c['library_ms']:.4f} ms  "
             f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+    cases += k3_phase()
     return {c["name"]: c for c in cases}
 
 
 # ---------------------------------------------------------------------------
-# towers and main path
+# towers and main paths
 # ---------------------------------------------------------------------------
+
+WRAPPERS = {"flash_attention_2d": fa.flash_attention_2d, "flash_attention": fa.flash_attention,
+            "quant_matmul": qm.quant_matmul}
+
+
+@contextlib.contextmanager
+def k3_plain():
+    """Send every int8 product through K3's plain version on the card, for
+    the reference side of the W8A8 tower checks.  The port's wrapper never
+    does that itself: on a CUDA tensor it launches the kernel."""
+    kernel = qm.quant_matmul
+
+    def plain(x, w_q, w_s, bias, act="none", out_dtype=torch.bfloat16):
+        out = qm.quant_matmul_ref(x, w_q, w_s, bias, out_dtype)
+        return F.gelu(out.float(), approximate="tanh").to(out_dtype) if act == "gelu" else out
+
+    qm.quant_matmul = plain  # batched_quant_matmul, and so every caller, looks it up here
+    try:
+        yield
+    finally:
+        qm.quant_matmul = kernel
+
+
+def tower_inputs(sam, frame):
+    img = torch.as_tensor(frame.rgb, device="cuda")
+    gen = torch.Generator().manual_seed(SEED + 1)
+    return sam_mod.preprocess(img[None], sam.variant.img_size), torch.randn(9, 224, 224, 3, generator=gen).cuda()
+
+
+def cosine(a, b) -> float:
+    return F.cosine_similarity(a.float().flatten(), b.float().flatten(), dim=0).item()
+
+
+def rel_err(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
 def tower_checks(clip, sam, frame):
     """Full-width encoders through the kernels vs through the plain versions."""
-    img = torch.as_tensor(frame.rgb, device="cuda")
-    x = sam_mod.preprocess(img[None], sam.variant.img_size)
+    x, crops = tower_inputs(sam, frame)
     e_k = sam_mod.encode_image(sam.encoder, x, sam.variant, impl="flash").float()
     e_p = sam_mod.encode_image(sam.encoder, x, sam.variant, impl="xla").float()
-    cos_sam = torch.nn.functional.cosine_similarity(e_k.flatten(), e_p.flatten(), dim=0).item()
-    rel_sam = ((e_k - e_p).norm() / e_p.norm()).item()
-    gen = torch.Generator().manual_seed(SEED + 1)
-    crops = torch.randn(9, 224, 224, 3, generator=gen).cuda()
+    cos_sam, rel_sam = cosine(e_k, e_p), rel_err(e_k, e_p)
     f_k = clip_mod.encode_image(clip, crops, impl="flash")
     f_p = clip_mod.encode_image(clip, crops, impl="xla")
     cos_clip = (f_k * f_p).sum(-1).min().item()
@@ -242,25 +387,56 @@ def tower_checks(clip, sam, frame):
     # about 3x the differences read on an H100 (SAM rel err 1.0e-2; 1 - cosine 5e-5 for both)
     check(cos_sam > 0.9998 and rel_sam < 0.03, "SAM encoder through K1 disagrees with the plain version")
     check(cos_clip > 0.9998, "CLIP encoder through K2 disagrees with the plain version")
+    return e_k, f_k
 
 
-def main_path(clip, sam, ds, cfg):
-    keyframes = list(range(0, len(ds), cfg.pipeline.skip_frames))
-    # warm-up on one frame (library handles, allocator), outside the counted run
-    Mapper(cfg, clip, sam).process_frame(ds[keyframes[0]])
+def q8_tower_checks(qclip, qsam, frame, e_bf16, f_bf16):
+    """The W8A8 towers through K1/K2/K3 vs the same towers through the three
+    plain versions (CLIP in both qmm modes).  K3 is bit-exact with its plain
+    version; the towers still differ because the int8 rounding of each next
+    layer turns the attention kernels' last-bit differences into whole
+    quantization steps.  The cosine to the bf16 towers is for information."""
+    x, crops = tower_inputs(qsam, frame)
+    n0 = qm.quant_matmul.launches
+    e_k = sam_mod.encode_image(qsam.encoder, x, qsam.variant, impl="flash").float()
+    check(qm.quant_matmul.launches - n0 == 4 * qsam.variant.depth, "W8A8 SAM encoder: K3 launches")
+    with k3_plain():
+        e_p = sam_mod.encode_image(qsam.encoder, x, qsam.variant, impl="xla").float()
+    cos_sam, rel_sam = cosine(e_k, e_p), rel_err(e_k, e_p)
+    log(f"[towers] W8A8 SAM vit_b embedding through kernels vs plain: cosine {cos_sam:.6f}, rel err "
+        f"{rel_sam:.3e}; vs the bf16 encoder: cosine {cosine(e_k, e_bf16):.6f}, rel err {rel_err(e_k, e_bf16):.3e}")
+    cos_clip = {}
+    for qmm in ("xla", "pallas"):
+        n0 = qm.quant_matmul.launches
+        f_k = clip_mod.encode_image(qclip, crops, impl="flash", qmm=qmm)
+        check(qm.quant_matmul.launches - n0 == 4 * qclip.variant.v_layers, f"W8A8 CLIP qmm={qmm}: K3 launches")
+        with k3_plain():
+            f_p = clip_mod.encode_image(qclip, crops, impl="xla", qmm=qmm)
+        cos_clip[qmm] = (f_k * f_p).sum(-1).min().item()
+        log(f"[towers] W8A8 CLIP ViT-L/14 qmm={qmm} features through kernels vs plain: min cosine "
+            f"{cos_clip[qmm]:.6f}; vs the bf16 tower: min cosine {(f_k * f_bf16).sum(-1).min().item():.6f}")
+    check(qm.quant_matmul.launches == n0 + 4 * qclip.variant.v_layers, "k3_plain launched K3")
+    # about 3x the differences read on an H100 (SAM: 1 - cosine 2.1e-4, rel err 2.0e-2; CLIP: 1 - cosine
+    # 1.7e-4 in either mode)
+    check(cos_sam > 0.9994 and rel_sam < 0.06, "W8A8 SAM encoder through the kernels disagrees with the plain versions")
+    for qmm, c in cos_clip.items():
+        check(c > 0.9995, f"W8A8 CLIP qmm={qmm} through the kernels disagrees with the plain versions")
+
+
+def counted(run):
+    """Set every launch count to 0 and start tracing, call `run`, then read
+    the counts and each launch's device time (CUDA events)."""
+    for w in WRAPPERS.values():
+        w.launches, w.trace = 0, []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    timer = StageTimer("cuda")
-    wrappers = {"flash_attention_2d": fa.flash_attention_2d, "flash_attention": fa.flash_attention}
-    for w in wrappers.values():
-        w.launches, w.trace = 0, []  # trace: CUDA events around each launch, read after the run
     t0 = time.perf_counter()
-    ms = Mapper(cfg, clip, sam, timer=timer).run(ds)
+    out = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in wrappers.items()}
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
     in_path = {}  # kernel -> {shape key: [launches, device ms summed]}
-    for name, w in wrappers.items():
+    for name, w in WRAPPERS.items():
         check(len(w.trace) == w.launches, f"{name}: {len(w.trace)} traced launches, counter {w.launches}")
         runs = in_path[name] = {}
         for key, a, b in w.trace:
@@ -268,22 +444,38 @@ def main_path(clip, sam, ds, cfg):
             r[0] += 1
             r[1] += a.elapsed_time(b)
         w.trace = None
-    nf = len(keyframes)
-    log(f"[main] {nf} keyframes in {wall:.3f} s: {nf / wall:.3f} frames/s (finalize included)")
+    return out, wall, launches, in_path, torch.cuda.max_memory_allocated()
+
+
+def report(tag, nf, wall, timer, launches, in_path, peak, expect):
+    """Print a path's stages and kernel launches; check the counts per
+    keyframe against `expect`."""
     for name, v in sorted(timer.ms.items()):  # a sub-stage "a.b" sorts after its stage "a"
-        log(f"[main] stage {name:18s} {v:10.3f} ms total  {v / timer.calls[name]:9.3f} ms/call")
-    log(f"[main] clip tiers per frame: {timer.notes['tier']}")
-    log(f"[main] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    log(f"[main] launches {launches}")
+        log(f"[{tag}] stage {name:18s} {v:10.3f} ms total  {v / timer.calls[name]:9.3f} ms/call")
+    log(f"[{tag}] clip tiers per frame: {timer.notes['tier']}")
+    log(f"[{tag}] max_memory_allocated {peak / 2**30:.3f} GiB")
+    log(f"[{tag}] launches {launches}")
     for name, runs in in_path.items():
         for key, (n, t) in runs.items():
-            log(f"[main] {name} {key}: {n} launches, {t:.4f} ms in the run ({t / n:.4f} ms/launch)")
-    check(launches["flash_attention_2d"] == 12 * nf, f"K1 launches {launches['flash_attention_2d']} != 12 x {nf}")
-    check(launches["flash_attention"] == 24 * nf, f"K2 launches {launches['flash_attention']} != 24 x {nf}")
+            log(f"[{tag}] {name} {key}: {n} launches, {t:.4f} ms in the run ({t / n:.4f} ms/launch)")
+    for name, per in expect.items():
+        check(launches[name] == per * nf, f"{tag}: {name} launches {launches[name]} != {per} x {nf}")
+
+
+def main_path(clip, sam, ds, cfg, tag, expect):
+    """Mapper.run + finalize over the keyframes, counted."""
+    keyframes = list(range(0, len(ds), cfg.pipeline.skip_frames))
+    # warm-up on one frame (library handles, allocator), outside the counted run
+    Mapper(cfg, clip, sam).process_frame(ds[keyframes[0]])
+    timer = StageTimer("cuda")
+    ms, wall, launches, in_path, peak = counted(lambda: Mapper(cfg, clip, sam, timer=timer).run(ds))
+    nf = len(keyframes)
+    log(f"[{tag}] {nf} keyframes in {wall:.3f} s: {nf / wall:.3f} frames/s (finalize included)")
+    report(tag, nf, wall, timer, launches, in_path, peak, expect)
     n_pts = int(ms.scene.num)
     n_inst = int(ms.instances.num())
     valid_rows = ms.scene.valid()
-    log(f"[main] scene points {n_pts}, valid instances {n_inst}, keyframe feats {tuple(ms.keyframe_feats.shape)}")
+    log(f"[{tag}] scene points {n_pts}, valid instances {n_inst}, keyframe feats {tuple(ms.keyframe_feats.shape)}")
     check(n_pts > 0, "empty scene")
     check(n_inst >= 1, "no valid instance")
     check(tuple(ms.keyframe_feats.shape) == (nf, clip.variant.embed_dim), "keyframe feature shape")
@@ -291,22 +483,60 @@ def main_path(clip, sam, ds, cfg):
     check(bool(torch.isfinite(ms.instance_feats).all()), "non-finite instance features")
     check(bool(torch.isfinite(ms.scene.feats()[valid_rows]).all()), "non-finite scene features")
     check(bool(torch.isfinite(ms.scene.points()[valid_rows]).all()), "non-finite scene points")
-    return launches, in_path, timer, nf
+    return dict(launches=launches, in_path=in_path, nf=nf, ms=ms)
 
 
-def kernels_line(cases, launches, in_path, nf):
-    """One entry per kernel, for the counted main-path run.  `ms` is the
-    kernel's device time inside that run (CUDA events around each launch).
-    `isolated_ms`, `plain_ms`, `library_ms` and `bound_ms` are the kernel
-    phase's per-launch numbers at each launch's shape, summed over the
-    run's launches.  `cases` holds the per-launch numbers themselves."""
+def extraction_path(qclip, qsam, ds, cfg, tag, expect, mapper_feats):
+    """The W8A8 tiered extraction with clip_qmm="pallas" on each keyframe,
+    counted; its global features against the W8A8 Mapper's (qmm="xla")."""
+    sc, p = cfg.models.sam, cfg.pipeline
+    kw = dict(points_per_side=sc.points_per_side, pred_iou_thresh=sc.pred_iou_thresh,
+              stability_thresh=sc.stability_score_thresh, min_area=float(sc.min_mask_region_area),
+              max_masks=sc.max_masks, masked_weight=p.clip_masked_weight, bbox_margin=float(p.clip_bbox_margin),
+              impl=p.extract_impl, clip_impl=p.extract_clip_impl, clip_qmm="pallas")
+    frames = [torch.as_tensor(ds[i].rgb, dtype=torch.float32).cuda() for i in range(0, len(ds), p.skip_frames)]
+    extract_frame_features_tiered(qclip, qsam, frames[0], **kw)  # warm-up
+    timer = StageTimer("cuda")
+    ffs, wall, launches, in_path, peak = counted(
+        lambda: [extract_frame_features_tiered(qclip, qsam, f, timer=timer, **kw) for f in frames])
+    nf = len(frames)
+    log(f"[{tag}] {nf} keyframes in {wall:.3f} s: {1e3 * wall / nf:.3f} ms/keyframe")
+    report(tag, nf, wall, timer, launches, in_path, peak, expect)
+    d = qclip.variant.embed_dim
+    for i, ff in enumerate(ffs):
+        check(ff.f_masks.shape == (sc.max_masks, d) and ff.f_global.shape == (d,), "extraction feature shapes")
+        check(bool(torch.isfinite(ff.f_masks).all() and torch.isfinite(ff.f_global).all()), "non-finite features")
+        check(int(ff.valid.sum()) >= 1, f"keyframe {i}: no valid mask")
+    cos = [F.cosine_similarity(ff.f_global, mapper_feats[i], dim=0).item() for i, ff in enumerate(ffs)]
+    log(f"[{tag}] f_global, clip_qmm=pallas vs the W8A8 Mapper's qmm=xla: min cosine {min(cos):.6f}")
+    return dict(launches=launches, in_path=in_path, nf=nf)
+
+
+KERNELS = (
+    ("flash_attention_2d", "holoagent_tpu_torch/csrc/flash_attention.cu", "holoagent_tpu/ops/flash_attention.py:157",
+     "bf16"),
+    ("flash_attention", "holoagent_tpu_torch/csrc/flash_attention.cu", "holoagent_tpu/ops/flash_attention.py:217",
+     "bf16"),
+    ("quant_matmul", "holoagent_tpu_torch/csrc/quant_matmul.cu", "holoagent_tpu/ops/quant_matmul.py:70", "w8a8"),
+)
+
+
+def kernels_line(cases, paths):
+    """One entry per kernel, for its main-path run: the bf16 Mapper run for
+    K1 and K2, the W8A8 Mapper run for K3.  `ms` is the kernel's device time
+    inside that run (CUDA events around each launch).  `isolated_ms`,
+    `plain_ms`, `library_ms` and `bound_ms` are the kernel phase's
+    per-launch numbers at each launch's shape, summed over the run's
+    launches.  `launches_by_path` has every counted path's launches.
+    `cases` holds the per-launch numbers themselves."""
     by_key = {c["key"]: c for c in cases.values()}
     line = []
-    for name, replaces in (("flash_attention_2d", "holoagent_tpu/ops/flash_attention.py:157"),
-                           ("flash_attention", "holoagent_tpu/ops/flash_attention.py:217")):
-        runs = in_path[name]
-        unchecked = [k for k in runs if k not in by_key]
-        check(not unchecked, f"{name}: the main path launched shapes {unchecked} that no kernel phase held")
+    for name, source, replaces, main in KERNELS:
+        for tag, path in paths.items():
+            unchecked = [k for k in path["in_path"][name] if k not in by_key]
+            check(not unchecked, f"{name}: the {tag} path launched shapes {unchecked} that no kernel phase held")
+        runs, nf, launches = paths[main]["in_path"][name], paths[main]["nf"], paths[main]["launches"][name]
+        check(launches > 0, f"{name}: not launched on its main path")
 
         def summed(field):
             return sum(n * by_key[k][field] for k, (n, _) in runs.items())
@@ -315,16 +545,30 @@ def kernels_line(cases, launches, in_path, nf):
         mine = [{f: v for f, v in c.items() if f not in ("key", "kernel")}
                 for c in cases.values() if c["kernel"] == name]
         line.append({
-            "name": name, "route": "cuda", "source": "holoagent_tpu_torch/csrc/flash_attention.cu",
-            "replaces": replaces, "launches": launches[name],
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": sum(t for _, t in runs.values()), "plain_ms": summed("plain_ms"),
             "bound_ms": summed("bound_ms"), "bound_by": by_key[dominant]["bound_by"],
             "library_ms": summed("library_ms"), "isolated_ms": summed("ms"),
-            "per": f"the counted main-path run: {launches[name]} launches over {nf} keyframes",
+            "per": f"the counted {main} Mapper run: {launches} launches over {nf} keyframes",
+            "launches_by_path": {tag: path["launches"][name] for tag, path in paths.items()},
             "cases": mine,
         })
     return {"kernels": line}
+
+
+def build_all():
+    """One nvcc per kernel source, all started together."""
+    t0 = time.perf_counter()
+    libs = {"flash_attention": fa.LIB, "quant_matmul": qm.LIB}
+    with ThreadPoolExecutor(len(libs)) as ex:
+        built = {name: ex.submit(lib.build) for name, lib in libs.items()}
+        built = {name: f.result() for name, f in built.items()}
+    log(f"[build] {time.perf_counter() - t0:.2f} s -> {', '.join(p.name for p in built.values())}")
+    for name, lib in built.items():
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
 
 
 def main() -> int:
@@ -338,27 +582,32 @@ def main() -> int:
     log(f"[device] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
-    lib = fa.build()
-    log(f"[build] {time.perf_counter() - t0:.2f} s -> {lib.name}")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
-
+    build_all()
     cases = kernel_phases()
 
     cfg = from_dict(CONFIG)
+    qcfg_dict = copy.deepcopy(CONFIG)
+    for tower in ("clip", "sam"):
+        qcfg_dict["models"][tower]["quant"] = True
+    qcfg = from_dict(qcfg_dict)
     t0 = time.perf_counter()
     clip = clip_mod.init_clip_visual(clip_mod.VARIANTS[cfg.models.clip.type], seed=SEED, dtype=torch.bfloat16)
     sam = sam_mod.init_sam(sam_mod.VARIANTS[cfg.models.sam.type], seed=SEED + 1, dtype=torch.bfloat16)
+    qclip, qsam, _, _ = load_models(qcfg)  # the same seeds: the int8 towers of the bf16 ones
     ds = SyntheticDataset(SyntheticScene.three_room(SEED), num_frames=FRAMES, hw=(480, 640), seed=SEED)
     for i in range(0, len(ds), cfg.pipeline.skip_frames):
         ds[i]  # render up front: data set-up is not mapping time
-    log(f"[setup] towers + {len(ds)} rendered frames in {time.perf_counter() - t0:.2f} s")
+    log(f"[setup] bf16 and W8A8 towers + {len(ds)} rendered frames in {time.perf_counter() - t0:.2f} s")
 
-    tower_checks(clip, sam, ds[0])
-    launches, in_path, timer, nf = main_path(clip, sam, ds, cfg)
-    print(json.dumps(kernels_line(cases, launches, in_path, nf)))
+    e_bf16, f_bf16 = tower_checks(clip, sam, ds[0])
+    q8_tower_checks(qclip, qsam, ds[0], e_bf16, f_bf16)
+    paths = {"bf16": main_path(clip, sam, ds, cfg, "main", {"flash_attention_2d": 12, "flash_attention": 24,
+                                                             "quant_matmul": 0})}
+    q8_expect = {"flash_attention_2d": 12, "flash_attention": 24, "quant_matmul": 144}
+    paths["w8a8"] = main_path(qclip, qsam, ds, qcfg, "w8a8", q8_expect)
+    paths["w8a8 extraction, clip_qmm=pallas"] = extraction_path(
+        qclip, qsam, ds, qcfg, "w8a8-pallas", q8_expect, paths["w8a8"]["ms"].keyframe_feats)
+    print(json.dumps(kernels_line(cases, paths)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -3,7 +3,9 @@
 Inputs are plain numpy trees, as ``jax.tree.map(np.asarray, tree)`` gives
 them, so this module (and the port) never imports JAX.  The port's module
 and parameter names follow the reference's parameter trees: the dotted path
-of a leaf in the reference tree is the port's state-dict key.
+of a leaf in the reference tree is the port's state-dict key.  The one
+layout change: an int8 weight (a leaf named ``*_q8``, (in, out) in the
+reference) is (out, in) in the port, so it is transposed on the way in.
 """
 
 from __future__ import annotations
@@ -39,9 +41,12 @@ def flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
 
 @torch.no_grad()
 def load_flat(module: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
-    """Copy every parameter from `flat` (cast to the parameter's dtype);
-    the key sets must match exactly."""
+    """Copy every parameter from `flat` (through float32, which is exact for
+    int8, then cast to the parameter's dtype); the key sets must match
+    exactly.  Int8 weights (``*_q8``) come in the reference's (in, out)
+    layout and are stored (out, in)."""
     params = dict(module.named_parameters())
+    flat = {k: np.swapaxes(a, -1, -2) if k.endswith("_q8") else a for k, a in flat.items()}
     missing, extra = set(params) - set(flat), set(flat) - set(params)
     if missing or extra:
         raise KeyError(f"parameter mismatch: missing {sorted(missing)}, unexpected {sorted(extra)}")
@@ -56,22 +61,27 @@ def load_flat(module: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
 def clip_from_jax(
     np_params: Dict[str, Any], variant: CLIPVariant, device: DeviceLike = None, dtype=torch.float32
 ) -> CLIPVisual:
-    """The reference's CLIP params (``init_clip`` tree) -> the port's visual
-    tower.  The reference stacks its blocks on a leading layer axis."""
+    """The reference's CLIP params (``init_clip`` tree, or ``quantize_clip``'s
+    with ``blocks_q8``) -> the port's visual tower.  The reference stacks its
+    blocks on a leading layer axis."""
     visual = dict(np_params["visual"])
-    stacked = visual.pop("blocks")
+    quant = "blocks_q8" in visual
+    key = "blocks_q8" if quant else "blocks"
+    stacked = visual.pop(key)
     flat = flatten(visual)
     for i in range(variant.v_layers):
         for name, arr in stacked.items():
-            flat[f"blocks.{i}.{name}"] = np.asarray(arr)[i]
-    return load_flat(CLIPVisual(variant, dtype=dtype, device=device), flat)
+            flat[f"{key}.{i}.{name}"] = np.asarray(arr)[i]
+    return load_flat(CLIPVisual(variant, dtype=dtype, device=device, quant=quant), flat)
 
 
 def sam_from_jax(
     np_params: Dict[str, Any], variant: SAMVariant, device: DeviceLike = None, dtype=torch.float32
 ) -> SAM:
-    """The reference's SAM params (``init_sam`` tree) -> the port's SAM."""
-    return load_flat(SAM(variant, dtype=dtype, device=device), flatten(np_params))
+    """The reference's SAM params (``init_sam`` tree, or ``quantize_sam``'s
+    with ``{b, w_q8, w_s}`` linears) -> the port's SAM."""
+    quant = "w_q8" in np_params["encoder"]["blocks"][0]["qkv"]
+    return load_flat(SAM(variant, dtype=dtype, device=device, quant=quant), flatten(np_params))
 
 
 def _t(a, dtype, device) -> torch.Tensor:

@@ -1,8 +1,10 @@
 """CLIP image tower (counterpart of holoagent_tpu/models/clip.py, visual
 side): patchify -> pre-LN ViT -> cls token -> projection.
 
-The text tower, int8 quantization and checkpoint conversion are not ported
-yet (ROADMAP.md).
+``quantize_clip`` gives the int8 (W8A8) tower: its blocks become
+``blocks_q8`` (``transformer.QBlock``) and every block matmul runs through
+kernel K3.  The text tower and checkpoint conversion are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -46,23 +48,26 @@ VARIANTS = {
 
 class CLIPVisual(nn.Module):
     """Visual tower parameters, named and laid out as the reference's
-    ``params["visual"]``.  Parameters live in the working dtype."""
+    ``params["visual"]``.  Parameters live in the working dtype.  With
+    ``quant`` the blocks are ``blocks_q8`` (int8, see ``quantize_clip``)."""
 
-    def __init__(self, variant: CLIPVariant, dtype=torch.float32, device: DeviceLike = None):
+    def __init__(self, variant: CLIPVariant, dtype=torch.float32, device: DeviceLike = None, quant: bool = False):
         super().__init__()
         dev = resolve(device)
         kw = dict(dtype=dtype, device=dev)
         w = variant.v_width
         n_patches = (variant.image_size // variant.patch) ** 2
         self.variant = variant
+        self.quant = quant
         self.patch_w = tfm.frozen(torch.empty(variant.patch * variant.patch * 3, w, **kw))
         self.cls = tfm.frozen(torch.empty(w, **kw))
         self.pos = tfm.frozen(torch.empty(n_patches + 1, w, **kw))
         self.ln_pre_g = tfm.frozen(torch.ones(w, **kw))
         self.ln_pre_b = tfm.frozen(torch.zeros(w, **kw))
-        self.blocks = nn.ModuleList(
-            tfm.Block(w, 4 * w, dtype=dtype, device=dev) for _ in range(variant.v_layers)
+        blocks = nn.ModuleList(
+            (tfm.QBlock if quant else tfm.Block)(w, 4 * w, dtype=dtype, device=dev) for _ in range(variant.v_layers)
         )
+        setattr(self, "blocks_q8" if quant else "blocks", blocks)
         self.ln_post_g = tfm.frozen(torch.ones(w, **kw))
         self.ln_post_b = tfm.frozen(torch.zeros(w, **kw))
         self.proj = tfm.frozen(torch.empty(w, variant.embed_dim, **kw))
@@ -84,13 +89,31 @@ def init_clip_visual(
 
 
 @torch.no_grad()
+def quantize_clip(visual: CLIPVisual) -> CLIPVisual:
+    """Per-output-channel int8 quantization of the tower's blocks (W8A8,
+    ``transformer.quantize_block_``): a new tower with ``blocks_q8`` in place
+    of ``blocks``.  The block norms and biases and everything outside the
+    blocks stay float, in the tower's dtype (the scales of a bf16 tower are
+    computed in bf16, as the reference's on bf16 params)."""
+    out = CLIPVisual(visual.variant, dtype=visual.patch_w.dtype, device=visual.patch_w.device, quant=True)
+    for name, p in visual.named_parameters(recurse=False):
+        getattr(out, name).copy_(p)
+    for q, blk in zip(out.blocks_q8, visual.blocks):
+        tfm.quantize_block_(q, blk)
+    return out
+
+
+@torch.no_grad()
 def encode_image(
     visual: CLIPVisual,
     images: torch.Tensor,  # (B, S, S, 3) already normalized, channel-last
     impl: str = "xla",  # "flash": attention through kernel K2
     normalize: bool = True,
+    qmm: str = "xla",  # int8 tower: "pallas" = the fused kernel's contract (see transformer._q8_mm)
 ) -> torch.Tensor:
-    """(B, S, S, 3) -> (B, embed_dim) float32 image features."""
+    """(B, S, S, 3) -> (B, embed_dim) float32 image features.  An int8
+    tower runs its blocks through K3 in either `qmm` mode; a float tower
+    ignores `qmm`, as the reference does."""
     variant = visual.variant
     dtype = visual.patch_w.dtype
     p = variant.patch
@@ -101,7 +124,10 @@ def encode_image(
     cls = visual.cls.expand(b, 1, x.shape[-1])
     x = torch.cat([cls, x], dim=1) + visual.pos
     x = tfm.layer_norm(x, visual.ln_pre_g, visual.ln_pre_b)
-    x = tfm.run_stack(x, visual.blocks, variant.v_heads, impl=impl)
+    if visual.quant:
+        x = tfm.run_stack_q8(x, visual.blocks_q8, variant.v_heads, impl=impl, qmm=qmm)
+    else:
+        x = tfm.run_stack(x, visual.blocks, variant.v_heads, impl=impl)
     x = tfm.layer_norm(x[:, 0], visual.ln_post_g, visual.ln_post_b)
     feats = x.float() @ visual.proj.float()
     if normalize:

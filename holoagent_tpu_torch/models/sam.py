@@ -11,7 +11,9 @@ state-dict key such as ``encoder.blocks.2.qkv.w`` names the reference's
 reference computes with in float32: the neck's 3x3 convolution and the
 prompt encoder.
 
-Int8 quantization and checkpoint conversion are not ported yet (ROADMAP.md).
+``quantize_sam`` gives the int8 (W8A8) encoder: each block's qkv, proj,
+lin1 and lin2 become ``QLin`` (int8 weights, float32 scales) and run through
+kernel K3.  Checkpoint conversion is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from ..ops import masks as mask_ops
 from ..ops.flash_attention import flash_attention_2d, flash_attention_2d_ref
 from ..ops.resize import resize
 from ..utils.timing import StageTimer, stage
-from .transformer import frozen, gelu, layer_norm, linear
+from .transformer import frozen, gelu, layer_norm, linear, matmul_int8, quantize_weight_int8
 
 
 @dataclass(frozen=True)
@@ -91,36 +93,54 @@ class Lin(nn.Module):
         return linear(x, self.w, self.b)
 
 
+class QLin(nn.Module):
+    """An int8 linear layer as ``quantize_sam`` leaves it: b (dout,) in the
+    working dtype, w_q8 int8 (dout, din) (the port's layout; the reference
+    keeps (din, dout)), w_s (1, dout) float32."""
+
+    def __init__(self, din: int, dout: int, kw):
+        super().__init__()
+        self.b = _param((dout,), kw)
+        self.w_q8 = frozen(torch.zeros((dout, din), dtype=torch.int8, device=kw["device"]))
+        self.w_s = _param((1, dout), dict(kw, dtype=torch.float32))
+
+    def forward(self, x, out_dtype: Optional[torch.dtype] = None):
+        """(matmul_int8(x) + b) in float32, rounded once to `out_dtype`
+        (default x's dtype): kernel K3 with the bias fused."""
+        return matmul_int8(x, self.w_q8, self.w_s, self.b, out_dtype=out_dtype or x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Image encoder
 # ---------------------------------------------------------------------------
 
 
 class EncoderBlock(nn.Module):
-    def __init__(self, v: SAMVariant, n: int, kw):
+    def __init__(self, v: SAMVariant, n: int, kw, quant: bool = False):
         super().__init__()
         hd = v.width // v.heads
+        lin = QLin if quant else Lin
         self.norm1_g = _param((v.width,), kw)
         self.norm1_b = _param((v.width,), kw)
-        self.qkv = Lin(v.width, 3 * v.width, kw)
-        self.proj = Lin(v.width, v.width, kw)
+        self.qkv = lin(v.width, 3 * v.width, kw)
+        self.proj = lin(v.width, v.width, kw)
         self.rel_h = _param((2 * n - 1, hd), kw)
         self.rel_w = _param((2 * n - 1, hd), kw)
         self.norm2_g = _param((v.width,), kw)
         self.norm2_b = _param((v.width,), kw)
-        self.lin1 = Lin(v.width, 4 * v.width, kw)
-        self.lin2 = Lin(4 * v.width, v.width, kw)
+        self.lin1 = lin(v.width, 4 * v.width, kw)
+        self.lin2 = lin(4 * v.width, v.width, kw)
 
 
 class ImageEncoder(nn.Module):
-    def __init__(self, v: SAMVariant, kw):
+    def __init__(self, v: SAMVariant, kw, quant: bool = False):
         super().__init__()
         g = v.img_size // v.patch
         self.patch_w = _param((v.patch * v.patch * 3, v.width), kw)
         self.patch_b = _param((v.width,), kw)
         self.pos = _param((g, g, v.width), kw)
         self.blocks = nn.ModuleList(
-            EncoderBlock(v, g if i in v.global_idx else v.window, kw) for i in range(v.depth)
+            EncoderBlock(v, g if i in v.global_idx else v.window, kw, quant) for i in range(v.depth)
         )
         self.neck_conv1 = _param((1, 1, v.width, v.out_chans), kw)
         self.neck_ln1_g = _param((v.out_chans,), kw)
@@ -184,7 +204,9 @@ def _window_unpartition(x: torch.Tensor, win: int, padded, orig):
 def encode_image(enc: ImageEncoder, images: torch.Tensor, v: SAMVariant, impl: str = "xla") -> torch.Tensor:
     """(B, S, S, 3) normalized image -> (B, g, g, out_chans) embedding, in
     the encoder's dtype.  impl="flash" runs every attention layer, windowed
-    and global, through kernel K1."""
+    and global, through kernel K1.  An int8 encoder (``quantize_sam``) runs
+    its block matmuls through K3: qkv, proj and lin2 round once to the
+    working dtype, lin1 stays float32 into the GELU."""
     dtype = enc.patch_w.dtype
     b, s, _, _ = images.shape
     p = v.patch
@@ -202,7 +224,10 @@ def encode_image(enc: ImageEncoder, images: torch.Tensor, v: SAMVariant, impl: s
             att = _window_unpartition(aw, v.window, padded, (g, g))
         x = shortcut + att
         xn = _ln(x, blk.norm2_g, blk.norm2_b)
-        hmid = gelu(blk.lin1(xn).float()).to(dtype)
+        if isinstance(blk.lin1, QLin):
+            hmid = gelu(blk.lin1(xn, torch.float32)).to(dtype)
+        else:
+            hmid = gelu(blk.lin1(xn).float()).to(dtype)
         x = x + blk.lin2(hmid)
     # neck: 1x1 conv -> LN -> 3x3 conv (float32) -> LN, channel-last
     x = linear(x, enc.neck_conv1.reshape(enc.neck_conv1.shape[2], -1))
@@ -408,13 +433,15 @@ def decode_masks(
 
 class SAM(nn.Module):
     """Image encoder + prompt encoder + mask decoder, in the working dtype
-    (see the module docstring for the float32 exceptions)."""
+    (see the module docstring for the float32 exceptions).  With ``quant``
+    the encoder blocks' linears are ``QLin`` (see ``quantize_sam``)."""
 
-    def __init__(self, v: SAMVariant, dtype=torch.float32, device: DeviceLike = None):
+    def __init__(self, v: SAMVariant, dtype=torch.float32, device: DeviceLike = None, quant: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, device=resolve(device))
         self.variant = v
-        self.encoder = ImageEncoder(v, kw)
+        self.quant = quant
+        self.encoder = ImageEncoder(v, kw, quant)
         self.prompt = PromptEncoder(v, kw)
         self.decoder = MaskDecoder(v, kw)
 
@@ -467,6 +494,29 @@ def init_sam(v: SAMVariant, seed: int = 0, dtype=torch.float32, device: DeviceLi
     _fill(dec.up1_w, gen, std=d**-0.5)
     _fill(dec.up2_w, gen, std=(d // 4) ** -0.5)
     return m
+
+
+ENCODER_Q8 = ("qkv", "proj", "lin1", "lin2")  # the linears quantize_sam quantizes
+
+
+@torch.no_grad()
+def quantize_sam(sam: SAM) -> SAM:
+    """Per-output-channel W8A8 quantization of the image encoder's block
+    linears (qkv, proj, lin1, lin2): a new SAM whose other parameters (patch
+    embed, rel-pos tables, neck, prompt encoder, decoder) are copies.  As the
+    reference, the weights are quantized from their float32 values; biases
+    stay in the working dtype."""
+    out = SAM(sam.variant, dtype=sam.dtype, device=sam.encoder.patch_w.device, quant=True)
+    src = dict(sam.named_parameters())
+    for name, p in out.named_parameters():
+        if name in src:
+            p.copy_(src[name])
+    for q, blk in zip(out.encoder.blocks, sam.encoder.blocks):
+        for name in ENCODER_Q8:
+            w_q, w_s = quantize_weight_int8(getattr(blk, name).w.float())
+            getattr(q, name).w_q8.copy_(w_q.t())
+            getattr(q, name).w_s.copy_(w_s)
+    return out
 
 
 def preprocess(images01: torch.Tensor, img_size: int) -> torch.Tensor:

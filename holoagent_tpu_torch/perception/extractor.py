@@ -60,7 +60,7 @@ def _mask_stage(
 @torch.no_grad()
 def _clip_stage(
     clip: clip_mod.CLIPVisual, image01, masks, valid, boxes, tier: int,
-    masked_weight: float, bbox_margin: float, clip_impl: str, timer=None,
+    masked_weight: float, bbox_margin: float, clip_impl: str, timer=None, clip_qmm: str = "xla",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     h, w, _ = image01.shape
     m = masks.shape[0]
@@ -79,7 +79,7 @@ def _clip_stage(
         mean = torch.tensor(clip_mod.IMAGE_MEAN, dtype=stack.dtype, device=stack.device)
         std = torch.tensor(clip_mod.IMAGE_STD, dtype=stack.dtype, device=stack.device)
     with stage(timer, "clip.encoder"):
-        feats = clip_mod.encode_image(clip, (stack - mean) / std, impl=clip_impl).float()
+        feats = clip_mod.encode_image(clip, (stack - mean) / std, impl=clip_impl, qmm=clip_qmm).float()
     f_plain, f_masked, f_g = feats[:tier], feats[tier : 2 * tier], feats[2 * tier]
     # blend masked/plain crop features, then softmax-weight local vs global
     f_l = _l2(masked_weight * f_masked + (1.0 - masked_weight) * f_plain)
@@ -115,6 +115,7 @@ def extract_frame_features(
     impl: str = "xla",  # SAM attention: "flash" = kernel K1
     clip_impl: str = "xla",  # CLIP attention: "flash" = kernel K2
     timer: Optional[StageTimer] = None,
+    clip_qmm: str = "xla",  # int8 CLIP tower: "pallas" = the fused K3 contract; no-op for float towers
 ) -> FrameFeatures:
     """Single-pass extraction: always encodes 2 * max_masks + 1 CLIP crops."""
     with stage(timer, "mask"):
@@ -124,7 +125,8 @@ def extract_frame_features(
         )
     with stage(timer, "clip"):
         f_masks, f_g = _clip_stage(
-            clip, image01, masks, valid, boxes, max_masks, masked_weight, bbox_margin, clip_impl, timer
+            clip, image01, masks, valid, boxes, max_masks, masked_weight, bbox_margin, clip_impl, timer,
+            clip_qmm,
         )
     return FrameFeatures(masks=masks, valid=valid, boxes=boxes, f_masks=f_masks, f_global=f_g)
 
@@ -144,6 +146,7 @@ def extract_frame_features_tiered(
     clip_impl: str = "xla",
     tiers: Tuple[int, ...] = (16, 32),
     timer: Optional[StageTimer] = None,
+    clip_qmm: str = "xla",
 ) -> FrameFeatures:
     """Two-stage extraction with the crop batch sized to the frame: the mask
     stage runs, the host reads the valid count (one synchronising scalar),
@@ -159,6 +162,7 @@ def extract_frame_features_tiered(
         timer.note("tier", tier)
     with stage(timer, "clip"):
         f_masks, f_g = _clip_stage(
-            clip, image01, masks, valid, boxes, tier, masked_weight, bbox_margin, clip_impl, timer
+            clip, image01, masks, valid, boxes, tier, masked_weight, bbox_margin, clip_impl, timer,
+            clip_qmm,
         )
     return FrameFeatures(masks=masks, valid=valid, boxes=boxes, f_masks=f_masks, f_global=f_g)

@@ -1,0 +1,133 @@
+"""Time builds of the K3 source (holoagent_tpu_torch/csrc/quant_matmul.cu)
+against each other on one CUDA card, in turns, at the W8A8 towers' shapes.
+
+    python3 scripts/k3_ab.py [--diag] [name=path.cu ...]
+
+Builds the source as it stands ("source"), each `name=path.cu` given, and
+with --diag two builds that give wrong answers and serve only to time a part
+of the kernel: "noquant" (x converted, not divided by its scale) and
+"noprologue" (no row-scale reduction).  Each build is compiled with the
+port's nvcc flags, called through its C entry point, checked for bit
+equality with the plain version (quant_matmul_ref), and timed with CUDA
+events (median of 5 samples of 20 calls), the builds in the order A, B, ...,
+B, A.  torch._int_mm on the pre-quantized operands is timed beside them as a
+yardstick.  Needs nvcc and one card; writes the builds under
+holoagent_tpu_torch/_build/k3_ab.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import statistics
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from holoagent_tpu_torch.ops import quant_matmul as qm  # noqa: E402
+from holoagent_tpu_torch.ops._cuda_build import BUILD_DIR, NVCC_FLAGS, nvcc  # noqa: E402
+
+SHAPES = ((8481, 1024, 3072), (8481, 1024, 4096), (8481, 4096, 1024), (8481, 1024, 1024),
+          (4096, 3072, 768), (4900, 768, 2304), (33153, 1024, 4096))
+DIAG = {
+    "noquant": ("      float q = rintf(__fdiv_rn(to_float(e[t]), a));", "      float q = rintf(to_float(e[t]));"),
+    "noprologue": ("    if (m0 + r < M) {\n      const TIn* row", "    if (false) {\n      const TIn* row"),
+}
+
+
+def variants(argv):
+    source = qm.LIB.source.read_text()
+    out = {"source": source}
+    for arg in argv:
+        if arg == "--diag":
+            for name, (a, b) in DIAG.items():
+                if a not in source:
+                    raise SystemExit(f"--diag {name}: the source no longer has the line it patches")
+                out[name] = source.replace(a, b)
+        else:
+            name, path = arg.split("=", 1)
+            out[name] = Path(path).read_text()
+    return out
+
+
+def build(name, text, out_dir):
+    cu, so = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
+    cu.write_text(text)
+    r = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(so), str(cu)], capture_output=True, text=True)
+    if r.returncode:
+        raise SystemExit(f"{name}: nvcc failed\n{r.stderr}")
+    lib = ctypes.CDLL(str(so))
+    fn = lib.ha_quant_matmul
+    fn.argtypes, fn.restype = qm.LIB.signatures["ha_quant_matmul"], ctypes.c_int
+    regs = [ln.strip() for ln in (r.stdout + r.stderr).splitlines() if "registers" in ln]
+    return fn, regs[0] if regs else ""
+
+
+def time_ms(fn, samples=5, reps=20):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(samples):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    return statistics.median(out)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("k3_ab: CUDA is not available", file=sys.stderr)
+        return 1
+    out_dir = BUILD_DIR / "k3_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    texts = variants(sys.argv[1:])
+    with ThreadPoolExecutor(len(texts)) as ex:
+        built = dict(zip(texts, ex.map(lambda kv: build(*kv, out_dir), texts.items())))
+    for name, (_, regs) in built.items():
+        print(f"{name}: {regs}")
+    names = list(built)
+    order = names + names[::-1]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for m, k, n in SHAPES:
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        w_q = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+        w_s = torch.rand(n, generator=gen, device="cuda") * 1e-3
+        bias = 0.1 * torch.randn(n, generator=gen, device="cuda")
+        ref = qm.quant_matmul_ref(x, w_q, w_s, bias, torch.bfloat16)
+        out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        ms, same = {}, {}
+        for name in order:
+            fn = built[name][0]
+
+            def call():
+                return fn(x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                          m, n, k, 0, 0, stream)
+
+            if call() != 0:
+                raise SystemExit(f"{name}: launch failed")
+            torch.cuda.synchronize()
+            same[name] = bool(torch.equal(out, ref))
+            ms[name] = min(ms.get(name, float("inf")), time_ms(call))
+        x_q = qm.quantize_rows(x)[0].to(torch.int8)
+        lib_ms = time_ms(lambda: torch._int_mm(x_q, w_q.t()))
+        cells = "  ".join(f"{nm} {ms[nm]:.4f}{'' if same[nm] else ' (differs)'}" for nm in names)
+        print(f"M={m} K={k} N={n} bf16->bf16 ms: {cells}  _int_mm {lib_ms:.4f}", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    print(smi.stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

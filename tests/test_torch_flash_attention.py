@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from holoagent_tpu.ops import flash_attention as jfa
+from holoagent_tpu_torch.ops import _cuda_build as cuda_build
 from holoagent_tpu_torch.ops import flash_attention as tfa
 
 torch.set_num_threads(1)
@@ -77,7 +78,7 @@ def test_wrappers_check_shapes(rng):
 
 def test_build_key_tracks_the_source():
     """The build output is keyed by the source, for sm_90a."""
-    path = tfa.library_path()
-    assert path.parent == tfa.BUILD_DIR and path.suffix == ".so"
-    assert "arch=compute_90a,code=sm_90a" in tfa.NVCC_FLAGS
-    assert tfa.SOURCE.exists() and "mma.sync" in tfa.SOURCE.read_text()
+    path = tfa.LIB.path()
+    assert path.parent == cuda_build.BUILD_DIR and path.suffix == ".so"
+    assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+    assert tfa.LIB.source.exists() and "mma.sync" in tfa.LIB.source.read_text()

@@ -14,6 +14,7 @@ import torch
 
 import holoagent_tpu_torch
 from holoagent_tpu_torch import device as tdevice
+from holoagent_tpu_torch.apps.common import load_models
 from holoagent_tpu_torch.config import from_dict
 from holoagent_tpu_torch.memory.mapping import Mapper
 from holoagent_tpu_torch.models import clip as tclip
@@ -76,6 +77,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     cfg = from_dict({"models": {"clip": {"type": "test-tiny", "dtype": "float32"}, "sam": {"type": "test-tiny"}}})
     with pytest.raises(RuntimeError):
         Mapper(cfg, clip, sam)
+    with pytest.raises(RuntimeError):
+        load_models(cfg)
     assert tdevice.resolve("cpu").type == "cpu"
 
 
