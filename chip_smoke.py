@@ -10,9 +10,12 @@ Phases (any failure exits non-zero, with no result line):
   3. kernels: hold each kernel against its plain PyTorch version at the
      mapping path's shapes and show that the check rejects plain versions
      with a deliberate fault; time kernel, plain version and the one PyTorch
-     library call computing the same function (a yardstick only).  K1/K2
-     (attention) are held to a limit set by each case's own output scale;
-     K3 (W8A8 linear) to one ulp of its output dtype;
+     library call computing the same function (a yardstick only), and print
+     the kernel's ratio to it.  K1/K2 (attention) are held to a limit set by
+     each case's own output scale; K3 (W8A8 linear) to one ulp of its output
+     dtype.  K2's CLIP cases take q, k, v as views of one (B, T, 3W)
+     projection, as the towers' _attend splits it, and print the resident
+     kernel's plan (blocks per SM, waves);
   4. towers: at full width, hold the SAM and CLIP encoders through the
      kernels against the same encoders through the plain versions, in bf16
      and as W8A8 towers (CLIP in both qmm modes);
@@ -121,15 +124,23 @@ def log(*a) -> None:
     print(*a, flush=True)
 
 
+HOLD_CYCLES = 5_000_000  # about 2.5 ms of the card's clock: longer than the host takes to enqueue a sample
+
+
 def time_ms(fn, samples: int = 10, reps: int = 10) -> float:
     """Median over `samples` of the mean device time of `reps` back-to-back
-    calls, by CUDA events, after a warm-up."""
+    calls, by CUDA events, after a warm-up.  A device-side sleep holds the
+    stream while each sample's calls are enqueued, so the events time the
+    device's work alone and not the host's launch overhead (a call whose
+    kernel is shorter than its wrapper's host time would otherwise read as
+    the host time)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     out = []
     for _ in range(samples):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
         a.record()
         for _ in range(reps):
             fn()
@@ -202,13 +213,21 @@ def k1_case(name, bh, g, gen):
     flops = 4.0 * n * n * d * bh
     nbytes = 4 * bh * n * d * 2 + bh * n * 2 * g * 4
     res["bound_ms"], res["bound_by"] = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    res["ratio_to_library"] = res["ms"] / res["library_ms"]
     del mask
     return res
 
 
-def k2_case(name, b, h, t, causal, gen):
+def k2_case(name, b, h, t, causal, gen, packed=False):
+    """One K2 shape.  packed: q, k, v are the (B, H, T, D) views of one
+    (B, T, 3*H*D) projection that _attend makes (token stride 3*H*D, head
+    stride D), the layout the towers launch; else contiguous tensors."""
     d = 64
-    q, k, v = (torch.randn(b, h, t, d, generator=gen).to("cuda", torch.bfloat16) for _ in range(3))
+    if packed:
+        qkv = torch.randn(b, t, 3 * h * d, generator=gen).to("cuda", torch.bfloat16)
+        q, k, v = (z.reshape(b, t, h, d).transpose(1, 2) for z in qkv.split(h * d, dim=-1))
+    else:
+        q, k, v = (torch.randn(b, h, t, d, generator=gen).to("cuda", torch.bfloat16) for _ in range(3))
     out = fa.flash_attention(q, k, v, causal=causal)
     ref = fa.flash_attention_ref(q, k, v, causal=causal)
     v_bad = v.clone()
@@ -217,15 +236,20 @@ def k2_case(name, b, h, t, causal, gen):
         ("the values of the first 64-key tile dropped", fa.flash_attention_ref(q, k, v_bad, causal=causal)),
     ])
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    if not causal and t <= fa.T_MAX:
+        p = fa.resident_plan(b * h, t)
+        grid = p["blocks_per_head"] * b * h
+        res["plan"] = dict(p, grid=grid, waves=grid / (p["blocks_per_sm"] * p["sms"]))
     res.update(
         kernel="flash_attention", key=(b, h, t, causal), name=name,
-        shape=f"B={b} H={h} T={t} D={d} causal={causal} bf16",
+        shape=f"B={b} H={h} T={t} D={d} causal={causal} {'packed qkv' if packed else 'contiguous'} bf16",
         ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=causal)),
         plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v, causal=causal), samples=5, reps=2),
         library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=causal)),
     )
     pairs = t * (t + 1) / 2 if causal else t * t  # key/query pairs this input needs
     res["bound_ms"], res["bound_by"] = bound(4.0 * pairs * d * b * h, 4 * b * h * t * d * 2, PEAK_BF16_FLOPS)
+    res["ratio_to_library"] = res["ms"] / res["library_ms"]
     return res
 
 
@@ -281,6 +305,7 @@ def k3_case(name, m, k, n, x_dtype, out_dtype, gen):
     )
     nbytes = m * k * x.element_size() + n * k + 2 * n * 4 + m * n * out.element_size()
     res["bound_ms"], res["bound_by"] = bound(2.0 * m * n * k, nbytes, PEAK_INT8_OPS)
+    res["ratio_to_library"] = res["ms"] / res["library_ms"]
     return res
 
 
@@ -309,7 +334,7 @@ def k3_phase():
             f"differ, max abs err {c['max_abs_err']:.3e}); mutants rejected at "
             f"{', '.join(f'{v} ulps' for v in c['mutant_ulps'].values())}; "
             f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  _int_mm {c['library_ms']:.4f} ms  "
-            f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+            f"({c['ratio_to_library']:.2f}x)  bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
     return cases
 
 
@@ -320,15 +345,20 @@ def kernel_phases():
         k1_case("k1_window", 300, 14, gen),  # vit_b windows: 25 windows x 12 heads, 14x14
     ]
     for tier in (16, 32, 64):  # CLIP ViT-L/14 crop stack: B = 2*tier + 1
-        cases.append(k2_case(f"k2_clip_tier{tier}", 2 * tier + 1, 16, 257, False, gen))
-    cases.append(k2_case("k2_causal_t384", 4, 16, 384, True, gen))
+        cases.append(k2_case(f"k2_clip_tier{tier}", 2 * tier + 1, 16, 257, False, gen, packed=True))
+    cases.append(k2_case("k2_causal_t384", 4, 16, 384, True, gen))  # the streamed kernel
     cases.append(k2_case("k2_t200", 4, 16, 200, False, gen))
     for c in cases:
-        log(f"[kernel] {c['name']:18s} {c['shape']:38s} err {c['max_abs_err']:.3e} (tol {c['tol']:.3e}, "
+        log(f"[kernel] {c['name']:18s} {c['shape']:49s} err {c['max_abs_err']:.3e} (tol {c['tol']:.3e}, "
             f"max|ref| {c['ref_max']:.3e}, rms(ref) {c['ref_rms']:.3e}, rel rms err {c['rel_rms_err']:.3e} "
             f"tol {REL_RMS_TOL:.3e}) "
             f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  library {c['library_ms']:.4f} ms  "
-            f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+            f"({c['ratio_to_library']:.2f}x)  bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+        if "plan" in c:
+            p = c["plan"]
+            log(f"[kernel] {c['name']}: resident kernel, {p['tiles_per_block']} query tiles a block, "
+                f"{p['blocks_per_head']} blocks a head, {p['grid']} blocks, {p['blocks_per_sm']} blocks per SM "
+                f"on {p['sms']} SMs: {p['waves']:.2f} waves")
     cases += k3_phase()
     return {c["name"]: c for c in cases}
 
@@ -527,8 +557,11 @@ def kernels_line(cases, paths):
     inside that run (CUDA events around each launch).  `isolated_ms`,
     `plain_ms`, `library_ms` and `bound_ms` are the kernel phase's
     per-launch numbers at each launch's shape, summed over the run's
-    launches.  `launches_by_path` has every counted path's launches.
-    `cases` holds the per-launch numbers themselves."""
+    launches; `ratio_to_library` is `isolated_ms` over `library_ms`, both
+    device time with the stream held, so host work inside the in-run
+    events does not count against the kernel.
+    `launches_by_path` has every counted path's launches.  `cases` holds
+    the per-launch numbers themselves."""
     by_key = {c["key"]: c for c in cases.values()}
     line = []
     for name, source, replaces, main in KERNELS:
@@ -544,12 +577,14 @@ def kernels_line(cases, paths):
         dominant = max(runs, key=lambda k: runs[k][0] * by_key[k]["bound_ms"])
         mine = [{f: v for f, v in c.items() if f not in ("key", "kernel")}
                 for c in cases.values() if c["kernel"] == name]
+        in_run = sum(t for _, t in runs.values())
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in mine),
-            "ms": sum(t for _, t in runs.values()), "plain_ms": summed("plain_ms"),
+            "ms": in_run, "plain_ms": summed("plain_ms"),
             "bound_ms": summed("bound_ms"), "bound_by": by_key[dominant]["bound_by"],
             "library_ms": summed("library_ms"), "isolated_ms": summed("ms"),
+            "ratio_to_library": summed("ms") / summed("library_ms"),
             "per": f"the counted {main} Mapper run: {launches} launches over {nf} keyframes",
             "launches_by_path": {tag: path["launches"][name] for tag, path in paths.items()},
             "cases": mine,

@@ -86,17 +86,25 @@ class CudaLibrary:
         return self._lib
 
 
-def kernel_input(x: torch.Tensor, name: str, dtype: torch.dtype) -> torch.Tensor:
-    """A CUDA tensor of `dtype`, contiguous and 16-byte aligned (a copy when
-    it is not); raises on any other device or type."""
+def check_input(x: torch.Tensor, name: str, dtype: torch.dtype) -> None:
+    """Raise unless `x` is a CUDA tensor of `dtype`."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} is on {x.device}; all inputs must share the CUDA device")
     if x.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+
+
+def aligned_contiguous(x: torch.Tensor) -> torch.Tensor:
+    """`x`, contiguous and 16-byte aligned (a copy when it is not)."""
     x = x.contiguous()
-    if x.data_ptr() % 16:
-        x = x.clone()
-    return x
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def kernel_input(x: torch.Tensor, name: str, dtype: torch.dtype) -> torch.Tensor:
+    """A CUDA tensor of `dtype`, contiguous and 16-byte aligned (a copy when
+    it is not); raises on any other device or type."""
+    check_input(x, name, dtype)
+    return aligned_contiguous(x)
 
 
 def launch(wrapper, key: tuple, stream: torch.cuda.Stream, entry, *args) -> None:

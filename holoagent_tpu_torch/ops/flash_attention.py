@@ -13,22 +13,31 @@ tensor goes through the kernel or the wrapper raises.  Each wrapper counts
 its kernel launches in ``<wrapper>.launches``; while ``<wrapper>.trace`` is a
 list, it also appends CUDA events around each launch (see ``_cuda_build.launch``).
 
-The kernel takes contiguous bf16 (BH, N, D) tensors with D = 64;
-the wrappers make q, k and v contiguous (a copy when the caller passes a
-transposed view) and allocate the output.
+The kernels take bf16 with D = 64.  K1, and K2 when it is causal or
+T > ``T_MAX``, go through the streamed kernel, which takes contiguous
+(BH, N, D) tensors: the wrapper copies q, k and v when they are not and
+returns a contiguous output.  K2's non-causal T <= ``T_MAX`` (every CLIP
+layer) goes through the resident kernel, which reads q, k and v where they
+lie: any batch, head and token strides that are multiples of 16 bytes,
+last dim contiguous, such as ``_attend``'s views of the fused (B, T, 3W)
+projection (``kernel_layout``; any other layout is copied).  It writes a
+(B, T, H, D) buffer and the wrapper returns its (B, H, T, D) transpose
+(``attention_output``), so the caller's ``.transpose(1, 2).reshape(b, t, w)``
+is a view.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from ._cuda_build import CudaLibrary, kernel_input, launch
+from ._cuda_build import CudaLibrary, aligned_contiguous, check_input, kernel_input, launch
 
 NEG_INF = -1e30
 HEAD_DIM = 64  # the kernel's head dim (SAM vit_b and CLIP ViT-L/14 both use 64)
+T_MAX = 320  # longest T of K2's resident kernel: T_MAX of csrc/flash_attention.cu (a test holds them equal)
 
 
 # ---------------------------------------------------------------------------
@@ -67,11 +76,54 @@ def flash_attention_2d_ref(
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
-_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_p, _i, _f, _l = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 LIB = CudaLibrary("flash_attention.cu", {
     "ha_flash_attention_2d": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _p],
     "ha_flash_attention": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _p],
+    "ha_flash_attention_resident": [_p, _p, _p, _p, *[_l] * 9, _i, _i, _i, _i, _f, _p],
+    "ha_flash_attention_plan": [_i, _i, ctypes.POINTER(ctypes.c_int)],
 })
+
+
+# ---------------------------------------------------------------------------
+# Layouts of the resident kernel
+# ---------------------------------------------------------------------------
+
+
+def strided_layout(x: torch.Tensor) -> Optional[Tuple[int, int, int]]:
+    """(batch, head, token) strides in elements of a (B, H, T, D) tensor
+    the resident kernel reads in place, or None: the last dim contiguous,
+    the other strides and the start multiples of 16 bytes."""
+    size = x.element_size()
+    if x.stride(-1) != 1 or x.data_ptr() % 16 or any(s * size % 16 for s in x.stride()[:3]):
+        return None
+    return tuple(x.stride()[:3])
+
+
+def kernel_layout(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
+    """`x` and its strides if the resident kernel reads it in place, else a
+    contiguous 16-byte-aligned copy and its strides."""
+    strides = strided_layout(x)
+    if strides is None:
+        x = aligned_contiguous(x)
+        strides = tuple(x.stride()[:3])
+    return x, strides
+
+
+def attention_output(b: int, h: int, t: int, d: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """The resident kernel's output: a (B, T, H, D) buffer seen as (B, H, T, D)."""
+    return torch.empty((b, t, h, d), dtype=dtype, device=device).transpose(1, 2)
+
+
+def resident_plan(bh: int, t: int) -> dict:
+    """The resident kernel's launch for `bh` heads of `t` tokens on the
+    current card: query tiles per block, blocks per head, blocks per SM
+    (CUDA's occupancy calculator), SMs."""
+    out = (ctypes.c_int * 4)()
+    err = LIB.load().ha_flash_attention_plan(bh, t, out)
+    if err:
+        raise RuntimeError(f"ha_flash_attention_plan failed: cudaError {err}")
+    return dict(zip(("tiles_per_block", "blocks_per_head", "blocks_per_sm", "sms"), out))
 
 
 # ---------------------------------------------------------------------------
@@ -133,11 +185,22 @@ def flash_attention(
         return flash_attention_ref(q, k, v, causal=causal)
     if d != HEAD_DIM:
         raise ValueError(f"head dim {d}: the kernel takes {HEAD_DIM}")
-    q, k, v = (kernel_input(x, nm, torch.bfloat16) for x, nm in ((q, "q"), (k, "k"), (v, "v")))
-    o = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device)
+    if causal or t > T_MAX:  # the streamed kernel
+        q, k, v = (kernel_input(x, nm, torch.bfloat16) for x, nm in ((q, "q"), (k, "k"), (v, "v")))
+        o = torch.empty_like(q)
+        launch(
+            flash_attention, (b, h, t, causal), stream, LIB.load().ha_flash_attention,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, t, d, int(causal), t, d**-0.5,
+        )
+        return o
+    for x, nm in ((q, "q"), (k, "k"), (v, "v")):
+        check_input(x, nm, torch.bfloat16)
+    (q, sq), (k, sk), (v, sv) = (kernel_layout(x) for x in (q, k, v))
+    o = attention_output(b, h, t, d, q.dtype, q.device)
     launch(
-        flash_attention, (b, h, t, causal), torch.cuda.current_stream(q.device), LIB.load().ha_flash_attention,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, t, d, int(causal), t, d**-0.5,
+        flash_attention, (b, h, t, causal), stream, LIB.load().ha_flash_attention_resident,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *sq, *sk, *sv, b, h, t, d, d**-0.5,
     )
     return o
 

@@ -1,11 +1,14 @@
 """Fused W8A8 linear layer, kernel K3 (``quant_matmul``).
 
 Counterpart of holoagent_tpu/ops/quant_matmul.py.  The Pallas kernel there
-becomes a hand-written CUDA C++ kernel for Hopper (``csrc/quant_matmul.cu``,
-built for ``sm_90a`` with ``nvcc`` at first use into ``_build/`` and loaded
-with ``ctypes`` by ``ops/_cuda_build.py``).  It also serves the unfused int8
-path of the reference (``models/transformer.py::matmul_int8`` plus its
-bias): on a CUDA tensor every int8 product of the port goes through it.
+becomes hand-written CUDA C++ for Hopper (``csrc/quant_matmul.cu``, built
+for ``sm_90a`` with ``nvcc`` at first use into ``_build/`` and loaded with
+``ctypes`` by ``ops/_cuda_build.py``): one C entry that launches two stages
+on the caller's stream, a row-wise quantization of x into int8 scratch
+(once per element) and an int8 GEMM fed by TMA into ``wgmma`` with the
+dequantizing epilogue.  It also serves the unfused int8 path of the
+reference (``models/transformer.py::matmul_int8`` plus its bias): on a CUDA
+tensor every int8 product of the port goes through it.
 
 Per row of x, a dynamic scale ``a_s = max(amax|x| * f32(1/127), 1e-12)``;
 x quantized to int8 by ``clamp(round(x / a_s), -127, 127)`` (half to even);
@@ -17,7 +20,7 @@ reciprocal explicitly.  The quantizing division is a true division (by a
 tensor) in both.
 
 Weights are int8 **(N, K)**: each output channel K-contiguous, the layout
-the kernel's ``mma.sync`` takes.  The port transposes once, when it
+an 8-bit ``wgmma`` takes for its B operand.  The port transposes once, when it
 quantizes or carries over a quantized tree (``models/transformer.py``,
 ``bridge.py``).  ``w_s`` is (N,) or (1, N) float32.
 
@@ -44,7 +47,7 @@ INV_127 = float.fromhex("0x1.020408p-7")  # float32(1/127), exactly
 SCALE_FLOOR = 1e-12
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
-LIB = CudaLibrary("quant_matmul.cu", {"ha_quant_matmul": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p]})
+LIB = CudaLibrary("quant_matmul.cu", {"ha_quant_matmul": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p]})
 
 
 # ---------------------------------------------------------------------------
@@ -125,10 +128,12 @@ def quant_matmul(
         sk = kernel_input(w_s.reshape(n).float(), "w_s", torch.float32)
         bk = kernel_input(bias.reshape(n).float(), "bias", torch.float32)
         out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+        x_q = torch.empty((m, k), dtype=torch.int8, device=x.device)  # stage A's output, stage B's input
+        a_s = torch.empty((m,), dtype=torch.float32, device=x.device)
         launch(
             quant_matmul, (m, k, n, _TYPE_NAMES[x.dtype], _TYPE_NAMES[out_dtype]), torch.cuda.current_stream(x.device),
             LIB.load().ha_quant_matmul,
-            xk.data_ptr(), wk.data_ptr(), sk.data_ptr(), bk.data_ptr(), out.data_ptr(),
+            xk.data_ptr(), wk.data_ptr(), sk.data_ptr(), bk.data_ptr(), out.data_ptr(), x_q.data_ptr(), a_s.data_ptr(),
             m, n, k, int(x.dtype == torch.float32), int(out_dtype == torch.float32),
         )
     if act == "gelu":

@@ -3,14 +3,16 @@ against each other on one CUDA card, in turns, at the W8A8 towers' shapes.
 
     python3 scripts/k3_ab.py [--diag] [name=path.cu ...]
 
-Builds the source as it stands ("source"), each `name=path.cu` given, and
-with --diag two builds that give wrong answers and serve only to time a part
-of the kernel: "noquant" (x converted, not divided by its scale) and
-"noprologue" (no row-scale reduction).  Each build is compiled with the
-port's nvcc flags, called through its C entry point, checked for bit
-equality with the plain version (quant_matmul_ref), and timed with CUDA
-events (median of 5 samples of 20 calls), the builds in the order A, B, ...,
-B, A.  torch._int_mm on the pre-quantized operands is timed beside them as a
+Builds the source as it stands ("source") and each `name=path.cu` given.
+--diag adds "gemm_only", the source with stage A (the quantization of x)
+left out: it reads the int8 x and row scales the other builds left in the
+shared scratch, so it serves only to time stage B and, by difference, stage
+A.  Each build is compiled with the port's nvcc flags, called through its C
+entry point, checked for bit equality with the plain version
+(quant_matmul_ref), and timed with CUDA events (median of 5
+samples of 20 calls, enqueued while a device-side sleep holds the stream,
+so host overhead does not count), the builds in the order A, B, ..., B, A.
+torch._int_mm on the pre-quantized operands is timed beside them as a
 yardstick.  Needs nvcc and one card; writes the builds under
 holoagent_tpu_torch/_build/k3_ab.
 """
@@ -35,8 +37,8 @@ from holoagent_tpu_torch.ops._cuda_build import BUILD_DIR, NVCC_FLAGS, nvcc  # n
 SHAPES = ((8481, 1024, 3072), (8481, 1024, 4096), (8481, 4096, 1024), (8481, 1024, 1024),
           (4096, 3072, 768), (4900, 768, 2304), (33153, 1024, 4096))
 DIAG = {
-    "noquant": ("      float q = rintf(__fdiv_rn(to_float(e[t]), a));", "      float q = rintf(to_float(e[t]));"),
-    "noprologue": ("    if (m0 + r < M) {\n      const TIn* row", "    if (false) {\n      const TIn* row"),
+    "gemm_only": ("  int err = x_f32 ? quantize<float>(x, x_q, a_s, m, k, s) : quantize<__nv_bfloat16>(x, x_q, a_s, m, k, s);",
+                  "  int err = 0;"),
 }
 
 
@@ -69,12 +71,15 @@ def build(name, text, out_dir):
 
 
 def time_ms(fn, samples=5, reps=20):
+    """Median device time of a call; a device-side sleep holds the stream
+    while each sample is enqueued, so host overhead does not count."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     out = []
     for _ in range(samples):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(5_000_000)
         a.record()
         for _ in range(reps):
             fn()
@@ -95,32 +100,34 @@ def main() -> int:
         built = dict(zip(texts, ex.map(lambda kv: build(*kv, out_dir), texts.items())))
     for name, (_, regs) in built.items():
         print(f"{name}: {regs}")
-    names = list(built)
-    order = names + names[::-1]
     gen = torch.Generator(device="cuda").manual_seed(0)
     for m, k, n in SHAPES:
+        names = list(built)
         x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
         w_q = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
         w_s = torch.rand(n, generator=gen, device="cuda") * 1e-3
         bias = 0.1 * torch.randn(n, generator=gen, device="cuda")
         ref = qm.quant_matmul_ref(x, w_q, w_s, bias, torch.bfloat16)
         out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+        x_q = torch.empty(m, k, dtype=torch.int8, device="cuda")  # scratch shared by every build
+        a_s = torch.empty(m, dtype=torch.float32, device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
         ms, same = {}, {}
-        for name in order:
+        for name in names + names[::-1]:
             fn = built[name][0]
 
             def call():
                 return fn(x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                          m, n, k, 0, 0, stream)
+                          x_q.data_ptr(), a_s.data_ptr(), m, n, k, 0, 0, stream)
 
+            out.zero_()
             if call() != 0:
                 raise SystemExit(f"{name}: launch failed")
             torch.cuda.synchronize()
             same[name] = bool(torch.equal(out, ref))
             ms[name] = min(ms.get(name, float("inf")), time_ms(call))
-        x_q = qm.quantize_rows(x)[0].to(torch.int8)
-        lib_ms = time_ms(lambda: torch._int_mm(x_q, w_q.t()))
+        x_q8 = qm.quantize_rows(x)[0].to(torch.int8)
+        lib_ms = time_ms(lambda: torch._int_mm(x_q8, w_q.t()))
         cells = "  ".join(f"{nm} {ms[nm]:.4f}{'' if same[nm] else ' (differs)'}" for nm in names)
         print(f"M={m} K={k} N={n} bf16->bf16 ms: {cells}  _int_mm {lib_ms:.4f}", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

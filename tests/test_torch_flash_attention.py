@@ -19,7 +19,7 @@ def _qkv(rng, shape):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("t", [256, 384, 200])
+@pytest.mark.parametrize("t", [256, 384, 200, 257])
 def test_flash_attention_ref_matches_pallas(rng, causal, t):
     q, k, v = _qkv(rng, (2, 3, t, 64))
     ref = jfa.flash_attention(
@@ -81,4 +81,61 @@ def test_build_key_tracks_the_source():
     path = tfa.LIB.path()
     assert path.parent == cuda_build.BUILD_DIR and path.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
-    assert tfa.LIB.source.exists() and "mma.sync" in tfa.LIB.source.read_text()
+    text = tfa.LIB.source.read_text()
+    assert tfa.LIB.source.exists() and "mma.sync" in text
+    # K2's resident kernel: K/V staged by cp.async, V's fragments by ldmatrix.trans
+    assert "cp.async.cg.shared.global" in text and "ldmatrix.sync.aligned.m8n8.x4.trans" in text
+
+
+def test_k2_routes_on_the_kernels_length_limit():
+    """The wrapper's T_MAX, on which it routes to the resident kernel, is
+    the one the kernel's C entry checks."""
+    text = tfa.LIB.source.read_text()
+    assert f"constexpr int T_MAX = {tfa.T_MAX};" in text and 257 <= tfa.T_MAX
+
+
+def _attend_views(b, t, heads, d, dtype=torch.bfloat16):
+    """q, k, v as models/transformer.py::_attend cuts them from (B, T, 3W)."""
+    w = heads * d
+    qkv = torch.zeros(b, t, 3 * w, dtype=dtype)
+    return qkv, [z.reshape(b, t, heads, d).transpose(1, 2) for z in qkv.split(w, dim=-1)]
+
+
+def test_k2_reads_attend_views_in_place():
+    """The strides the wrapper hands K2's resident kernel for _attend's views:
+    token stride 3W, head stride D, batch stride T*3W, each view starting
+    at its third of the projection, no copy."""
+    b, t, heads, d = 3, 257, 16, 64
+    qkv, views = _attend_views(b, t, heads, d)
+    for i, x in enumerate(views):
+        assert tfa.strided_layout(x) == (t * 3 * heads * d, d, 3 * heads * d)
+        y, strides = tfa.kernel_layout(x)
+        assert y is x and strides == (t * 3 * heads * d, d, 3 * heads * d)
+        assert x.data_ptr() == qkv.data_ptr() + i * heads * d * qkv.element_size()
+
+
+def test_k2_output_transposes_back_without_a_copy():
+    """The (B, H, T, D) view of the kernel's (B, T, H, D) output: _attend's
+    .transpose(1, 2).reshape(b, t, w) of it is a view of the same memory."""
+    b, t, heads, d = 2, 257, 16, 64
+    o = tfa.attention_output(b, heads, t, d, torch.bfloat16, "cpu")
+    assert o.shape == (b, heads, t, d)
+    y = o.transpose(1, 2).reshape(b, t, heads * d)
+    assert y.data_ptr() == o.data_ptr() and y._base is o._base and y.is_contiguous()
+
+
+@pytest.mark.parametrize("layout", ["transposed", "misaligned", "odd_token_stride"])
+def test_k2_copies_layouts_the_kernel_does_not_take(layout):
+    """A layout K2's resident kernel cannot read in place is copied, as the
+    streamed kernel's inputs are: contiguous, 16-byte aligned."""
+    b, t, heads, d = 2, 40, 3, 64
+    if layout == "transposed":  # head dim not contiguous
+        x = torch.randn(b, heads, d, t).to(torch.bfloat16).transpose(-1, -2)
+    elif layout == "misaligned":  # start 2 bytes past a 16-byte boundary
+        x = torch.randn(b * heads * t * d + 1).to(torch.bfloat16)[1:].view(b, heads, t, d)
+    else:  # token stride of 68 elements, 136 bytes
+        x = torch.randn(b, heads, t, d + 4).to(torch.bfloat16)[..., :d]
+    assert tfa.strided_layout(x) is None
+    y, strides = tfa.kernel_layout(x)
+    assert y.data_ptr() != x.data_ptr() and y.is_contiguous() and y.data_ptr() % 16 == 0
+    assert strides == (heads * t * d, t * d, d) and torch.equal(y, x)

@@ -311,7 +311,13 @@ def test_build_key_tracks_the_k3_source():
     path = tqm.LIB.path()
     assert path.parent == cuda_build.BUILD_DIR and path.suffix == ".so" and "quant_matmul" in path.name
     assert path != cuda_build.CudaLibrary("flash_attention.cu", {}).path()
-    assert "m16n8k32.row.col.s32.s8.s8.s32" in tqm.LIB.source.read_text()
+    text = tqm.LIB.source.read_text()
+    # stage B: TMA tensor loads into an mbarrier ring, wgmma s8 x s8 -> s32
+    assert "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8" in text
+    assert "cp.async.bulk.tensor.2d" in text and "mbarrier.try_wait.parity" in text
+    # the C entry launches stage A (quantize_kernel) and then stage B (gemm_kernel)
+    assert "quantize_kernel" in text and "gemm_kernel" in text
+    assert len(tqm.LIB.signatures["ha_quant_matmul"]) == 13
 
 
 @pytest.mark.parametrize("quant", [False, True])
