@@ -13,9 +13,11 @@ Phases (any failure exits non-zero, with no result line):
      library call computing the same function (a yardstick only), and print
      the kernel's ratio to it.  K1/K2 (attention) are held to a limit set by
      each case's own output scale; K3 (W8A8 linear) to one ulp of its output
-     dtype.  K2's CLIP cases take q, k, v as views of one (B, T, 3W)
-     projection, as the towers' _attend splits it, and print the resident
-     kernel's plan (blocks per SM, waves);
+     dtype.  K1's cases take q, k, v as views of one (B, N, 3C) projection,
+     as SAM's _attention_2d splits it, and K2's CLIP cases as views of one
+     (B, T, 3W) projection, as the towers' _attend splits it; each prints
+     its kernel's plan (K1 global: the TMA + wgmma kernel; the windows and
+     K2: the resident kernel; blocks per SM, waves);
   4. towers: at full width, hold the SAM and CLIP encoders through the
      kernels against the same encoders through the plain versions, in bf16
      and as W8A8 towers (CLIP in both qmm modes);
@@ -73,8 +75,8 @@ PEAK_BYTES = 3.35e12
 #   max|out - ref| <= 2^-6 * max|ref|        (two ulps of the largest output)
 #   rms(out - ref) <= 2^-7 * rms(ref)        (one ulp, relative)
 # and the same test must reject the plain version with one key tile dropped
-# (and, for K1, with bias_w dropped on one 64-query tile of one head), so a
-# kernel that skips a tile or part of the bias cannot pass.
+# (and, for K1, with bias_h or bias_w dropped on one 64-query tile of one
+# head), so a kernel that skips a tile or part of the bias cannot pass.
 MAX_ERR_OF_MAX = 2.0**-6
 REL_RMS_TOL = 2.0**-7
 # K3 vs plain version: the kernel does the plain version's arithmetic
@@ -188,24 +190,38 @@ def hold(name: str, out, ref, mutants) -> dict:
     return a
 
 
-def k1_case(name, bh, g, gen):
+def k1_case(name, b, heads, g, gen):
+    """One K1 shape: q, k, v as the (B, heads, N, D) views of one (B, N, 3C)
+    projection that _attention_2d makes, bias (B*heads, N, g) f32."""
     n, d = g * g, 64
-    q, k, v = (torch.randn(bh, n, d, generator=gen).to("cuda", torch.bfloat16) for _ in range(3))
+    bh = b * heads
+    qkv = torch.randn(b, n, 3 * heads * d, generator=gen).to("cuda", torch.bfloat16)
+    q, k, v = qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
     bias_h = (0.5 * torch.randn(bh, n, g, generator=gen)).cuda()
     bias_w = (0.5 * torch.randn(bh, n, g, generator=gen)).cuda()
     out = fa.flash_attention_2d(q, k, v, bias_h, bias_w, (g, g))
     ref = fa.flash_attention_2d_ref(q, k, v, bias_h, bias_w, (g, g))
-    no_row0, no_bias_w = bias_h.clone(), bias_w.clone()
-    no_row0[..., 0] = fa.NEG_INF  # the keys of grid row 0: one 64-key tile at g=64
+    no_row0, no_bias_h, no_bias_w = bias_h.clone(), bias_h.clone(), bias_w.clone()
+    no_row0[..., 0] = fa.NEG_INF  # the keys of grid row 0: half a 128-key tile at g=64
+    no_bias_h[0, :64] = 0.0
     no_bias_w[0, :64] = 0.0
     res = hold(name, out, ref, [
         ("the keys of grid row 0 dropped", fa.flash_attention_2d_ref(q, k, v, no_row0, bias_w, (g, g))),
+        ("bias_h dropped on one query tile", fa.flash_attention_2d_ref(q, k, v, no_bias_h, bias_w, (g, g))),
         ("bias_w dropped on one query tile", fa.flash_attention_2d_ref(q, k, v, bias_h, no_bias_w, (g, g))),
     ])
-    mask = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(bh, n, n).to(torch.bfloat16)
+    if fa.k1_route(g, g) == "resident":
+        p = fa.resident_plan(bh, n, 2 * g)
+        grid = p["blocks_per_head"] * bh
+        res["plan"] = dict(p, kernel="resident", grid=grid, waves=grid / (p["blocks_per_sm"] * p["sms"]))
+    else:
+        p = fa.global_plan(bh, n)
+        res["plan"] = dict(p, kernel="global (TMA + wgmma)", waves=p["grid"] / (p["blocks_per_sm"] * p["sms"]))
+    mask = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(b, heads, n, n).to(torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     res.update(
-        kernel="flash_attention_2d", key=(bh, g, g), name=name, shape=f"BH={bh} N={n} h=w={g} D={d} bf16",
+        kernel="flash_attention_2d", key=(bh, g, g), name=name,
+        shape=f"B={b} H={heads} N={n} h=w={g} D={d} packed qkv bf16",
         ms=time_ms(lambda: fa.flash_attention_2d(q, k, v, bias_h, bias_w, (g, g))),
         plain_ms=time_ms(lambda: fa.flash_attention_2d_ref(q, k, v, bias_h, bias_w, (g, g)), samples=5, reps=2),
         library_ms=time_ms(lambda: sdpa(q, k, v, attn_mask=mask)),
@@ -239,7 +255,7 @@ def k2_case(name, b, h, t, causal, gen, packed=False):
     if not causal and t <= fa.T_MAX:
         p = fa.resident_plan(b * h, t)
         grid = p["blocks_per_head"] * b * h
-        res["plan"] = dict(p, grid=grid, waves=grid / (p["blocks_per_sm"] * p["sms"]))
+        res["plan"] = dict(p, kernel="resident", grid=grid, waves=grid / (p["blocks_per_sm"] * p["sms"]))
     res.update(
         kernel="flash_attention", key=(b, h, t, causal), name=name,
         shape=f"B={b} H={h} T={t} D={d} causal={causal} {'packed qkv' if packed else 'contiguous'} bf16",
@@ -341,8 +357,8 @@ def k3_phase():
 def kernel_phases():
     gen = torch.Generator().manual_seed(SEED)
     cases = [
-        k1_case("k1_global", 12, 64, gen),  # vit_b global layers: 64x64 grid, 12 heads
-        k1_case("k1_window", 300, 14, gen),  # vit_b windows: 25 windows x 12 heads, 14x14
+        k1_case("k1_global", 1, 12, 64, gen),  # vit_b global layers: 64x64 grid, 12 heads
+        k1_case("k1_window", 25, 12, 14, gen),  # vit_b windows: 25 windows x 12 heads, 14x14
     ]
     for tier in (16, 32, 64):  # CLIP ViT-L/14 crop stack: B = 2*tier + 1
         cases.append(k2_case(f"k2_clip_tier{tier}", 2 * tier + 1, 16, 257, False, gen, packed=True))
@@ -356,7 +372,8 @@ def kernel_phases():
             f"({c['ratio_to_library']:.2f}x)  bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
         if "plan" in c:
             p = c["plan"]
-            log(f"[kernel] {c['name']}: resident kernel, {p['tiles_per_block']} query tiles a block, "
+            tiles = f"{p['tiles_per_block']} query tiles a block, " if "tiles_per_block" in p else ""
+            log(f"[kernel] {c['name']}: {p['kernel']} kernel, {tiles}"
                 f"{p['blocks_per_head']} blocks a head, {p['grid']} blocks, {p['blocks_per_sm']} blocks per SM "
                 f"on {p['sms']} SMs: {p['waves']:.2f} waves")
     cases += k3_phase()

@@ -6,75 +6,108 @@
 //       s[q, k] = q.k * d^-1/2 + bias_h[q, k / w] + bias_w[q, k % w]
 //   * K2  flash_attention (_flash_kernel): plain blockwise attention over
 //     (B, H, T, D), optionally causal, keys at or past t_valid masked.
-// Two kernels: the streamed kernel (flash_kernel; REL_POS switches the bias
-// term on) serves K1, and K2 when it is causal or T > T_MAX; the resident
-// kernel (resident_kernel) serves K2's non-causal T <= T_MAX, which is every
-// CLIP ViT-L/14 attention layer (T = 257).
+// Three kernels:
+//   - global_kernel (TMA + wgmma, warp-specialised): K1 for N > T_MAX, the
+//     SAM global layers (a 64 x 64 grid);
+//   - resident_kernel<REL_POS>: K1 for N <= T_MAX (the SAM windows, 14 x 14)
+//     with the bias on, and K2's non-causal T <= T_MAX (every CLIP ViT-L/14
+//     layer, T = 257) with it off;
+//   - flash_kernel (streamed): K2 when it is causal or T > T_MAX.
+// All three read q, k and v where they lie (resident and global kernels:
+// any batch, head and token strides that are multiples of 16 bytes, last dim
+// contiguous, such as the views of a fused qkv projection; the streamed
+// kernel: contiguous (BH, N, D)), keep every score in registers (no (N, N)
+// tensor in device memory) and mask the ragged key edge themselves.
 //
 // What bounds it on the H100.  At the mapping pipeline's shapes (D = 64):
 //   K1 global layers  BH=12,  N=4096: 51.5 GFLOP of tensor-core work against
-//                     ~50 MB of traffic -> compute-bound (~52 us at 989 TF/s);
+//                     ~50 MB of traffic -> compute-bound (~52 us at 989
+//                     TF/s); the softmax's 201 M exponentials take about as
+//                     long again on the SFUs (16 a clock per SM);
 //   K1 windows        BH=300, N=196:   ~3 GFLOP, ~37 MB  -> memory-bound;
 //   K2 CLIP crops     BH=16*(2*tier+1), T=257: 8.9 GFLOP against 69 MB at
 //                     tier 16 -> memory-bound (21 us at 3.35 TB/s).
-// Both keep every score in registers: no (N, N) tensor is written to device
-// memory.
 //
-// The streamed kernel.  One block (4 warps, 128 threads) owns one
-// (batch*head, 64-query tile).  Each warp owns 16 query rows.  The block
-// walks 64-key tiles: K is staged row-major and V transposed in shared
-// memory (bf16, rows padded by 8 elements so the fragment loads are free of
-// bank conflicts), then
-//   S = Q K^T        mma.sync m16n8k16, bf16 in, f32 accumulate (registers),
-//   s = S*scale (+ bias gathered from the tile's rows of bias_h / bias_w,
-//       staged once per block in shared memory; no selector matmuls),
-//   masking of the ragged key edge (k >= t_valid) and, if causal, k > q,
-//   running max / sum / accumulator in f32 (FlashAttention-2 order: the sum
-//   is reduced across the quad only once, at the end),
-//   P (cast to bf16, reusing the S accumulator layout as the A operand) . V
-//       with mma.sync, f32 accumulate.
-// Causal blocks stop at the diagonal key tile.  The ragged key edge is masked
-// here, so callers pass N = 196 windows and T = 257 CLIP tokens unpadded.
-// Its inputs are contiguous (BH, N, D) bf16; the wrapper makes them so.
+// The global kernel (K1, N > T_MAX).  A block of three warpgroups owns 128
+// queries of one head: 32 blocks a head at N = 4096, one block an SM.
+//   - Warpgroup 0 is the producer: after `setmaxnreg` gives its registers to
+//     the consumers, one thread loads the block's Q tile once and then the
+//     head's K and V in 128-key tiles (two grid rows) into a ring of three
+//     stages, by TMA (cp.async.bulk.tensor, 4-D maps over (D, token, head,
+//     batch) at the caller's strides, 128-byte swizzle: a 64-wide bf16 row is
+//     one swizzle row), each stage guarded by a full and an empty mbarrier.
+//     TMA zero-fills rows past N.
+//   - Warpgroups 1 and 2 are the consumers, 64 queries (one grid row) each.
+//     Per key tile: S = Q K^T by wgmma m64n128k16 bf16 -> f32 with both
+//     operands in shared memory (K-major); the softmax in registers; then
+//     O += P V by wgmma m64n64k16 with P from registers (the S accumulator's
+//     layout is the A fragment's) and V from shared memory as stored,
+//     key-major with D contiguous, read through wgmma's transpose-B bit.
+//   - The bias without a division: a tile holds whole grid rows, so the key
+//     column kx of each accumulator slot is the same in every tile.  Each
+//     thread loads bias_w[q, kx] for its two rows and its slots once (32
+//     floats, in log2 units) and keeps them for the whole key loop.
+//     bias_h[q, ky] is one value per row and grid row of the tile, loaded per
+//     tile; it folds into the row's shift.  Per score: one FFMA (scale and
+//     bias_w), one FMAX, one FADD (shift) and one ex2.approx.  The running
+//     max is that of the biased scores; a grid row past h (an odd h) gets
+//     bias_h = -1e30, which masks its keys.
+//   - It takes grids 64 wide only (every SAM variant at 1024 px: vit_b, l,
+//     h); the C entry returns cudaErrorInvalidValue, and the wrapper raises,
+//     for any other width with N > T_MAX.  No shape goes to the plain version.
+//   - Each consumer waits for its S before the softmax and for its P V
+//     before the next tile; the other consumer's wgmma overlaps its softmax.
 //
-// The resident kernel.  At T = 257 the streamed kernel loads each 64-key
-// tile synchronously between two barriers, transposes V with scalar stores
-// and computes 320 x 320 slots for 257 x 257 pairs; its wrapper also copies
-// q, k, v out of the fused (B, T, 3W) projection and the output back.  Here
-// one block (4 warps) owns one head (or a share of its query tiles, where the
-// grid would otherwise not fill the card):
+// The resident kernel (K1 and K2, N <= T_MAX).  One block (4 warps) owns one
+// head (or a share of its query tiles, where the grid would otherwise not
+// fill the card and the heads alone fill at most half a wave; see
+// resident_plan):
 //   - it stages the head's whole K and V (T16 x 64 bf16 each, T16 = T rounded
 //     up to 16; 33 KB each at T = 257) in shared memory once, with 16-byte
 //     cp.async in two commit groups, K then V, so QK^T starts while V lands;
 //     rows are 128 bytes with their 16-byte chunks XOR-swizzled by row % 8,
 //     and rows past T are zero-filled (a stale NaN in a padded V row would
 //     survive p = 0);
-//   - q, k and v are read where they lie: any batch, head and token strides
-//     (multiples of 16 bytes), last dim contiguous, as _attend's views of the
-//     (B, T, 3W) tensor; the output is written as (B, T, H, D), so the
-//     caller's transpose back to (B, T, W) is free;
-//   - each warp walks m16 query tiles (17 a head at T = 257; a block takes
-//     at most nine of them, so a head is split over two blocks), its Q
-//     fragments loaded straight from device memory into registers (the next
-//     tile's while this tile's output is stored), and runs the online
-//     softmax over the resident keys in 64-key chunks with no barrier
-//     between chunks and no branch inside one, the tail masked at 16-key
-//     granularity; K's B fragments come from ldmatrix, V's from
-//     ldmatrix.trans;
-//   - the softmax keeps the running max of the raw scores and forms each
-//     probability as 2^(s * scale * log2(e) - max * scale * log2(e)): one
-//     FFMA and one ex2.approx a score (the streamed kernel scales, then
-//     takes __expf).
-// About 70 KB of shared memory at T = 257 lets three blocks share an SM.
+//   - the output is written as (B, T, H, D), so the caller's transpose back
+//     to (B, T, H * D) is a view;
+//   - each warp walks m16 query tiles, its Q fragments loaded straight from
+//     device memory into registers (the next tile's while this tile's output
+//     is stored), and runs the online softmax over the resident keys in
+//     64-key chunks (mma.sync m16n8k16) with no barrier between chunks and no
+//     branch inside one, the tail masked at 16-key granularity; K's B
+//     fragments come from ldmatrix, V's from ldmatrix.trans;
+//   - without the bias the softmax keeps the running max of the raw scores
+//     and forms each probability as 2^(s * scale * log2(e) - max * scale *
+//     log2(e)): one FFMA and one ex2.approx a score;
+//   - with the bias (REL_POS), each warp copies its query tile's bias_h and
+//     bias_w rows (16 x h and 16 x w f32, each contiguous in device memory)
+//     into its slice of shared memory with 4-byte cp.async, double-buffered:
+//     the next tile's rows are in flight while this tile runs.  A per-block
+//     table gives each 16-padded key its (ky, kx), computed once per block: a
+//     score is s * scale + bias_h_row[ky] + bias_w_row[kx], never a division,
+//     and the softmax then takes it to log2 units in its FFMA.  It takes
+//     grids with h + w <= RES_HW_MAX.
+// About 70 KB of shared memory at T = 257 (68 KB at the windows' T = 196,
+// the bias included) lets three blocks share an SM.
 //
-// Left for later: TMA loads, wgmma and warp specialisation for K1 and the
-// streamed kernel.
+// The streamed kernel (K2, causal or T > T_MAX).  One block (4 warps) owns
+// one (batch*head, 64-query tile) and walks 64-key tiles: K row-major and V
+// transposed in shared memory, mma.sync for both products, causal blocks
+// stopping at the diagonal.
+//
+// Left for later: a persistent tile loop and intra-warpgroup overlap of the
+// next tile's QK^T with this tile's softmax in the global kernel; wgmma in
+// the resident kernel.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder itself is fetched from libcuda at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace {
 
@@ -84,6 +117,8 @@ constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int VEC = 8;  // bf16 elements per 16-byte load
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.44269504088896341f;  // scores in log2 units: exp(x) = exp2(x * log2(e))
+constexpr int ROW_BYTES = 128;                 // one 64-wide bf16 row of Q, K or V
 
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
                                           uint32_t b0, uint32_t b1) {
@@ -103,6 +138,26 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// 2^x by the SFU (ex2.approx, flush to zero: about 2 ulps, and
+// 2^(-huge) = 0 for masked scores)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+struct Strides {
+  long long b, h, t;  // batch, head and token strides in elements; the last dim is contiguous
+};
+
+// ---------------------------------------------------------------------------
+// The streamed kernel: K2, causal or T > T_MAX
+// ---------------------------------------------------------------------------
+
 template <int D>
 struct Smem {
   static constexpr int LD = D + 8;         // padded row of the Q and K tiles
@@ -110,12 +165,11 @@ struct Smem {
   static constexpr int TILE_BYTES = (BLOCK_Q * LD + BLOCK_K * LD + D * LDV) * 2;
 };
 
-template <int D, bool REL_POS>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias_h,
-             const float* __restrict__ bias_w, __nv_bfloat16* __restrict__ o, int n,
-             int grid_h, int grid_w, int causal, int n_valid, float scale) {
+             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int n, int causal,
+             int n_valid, float scale) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int LD = Smem<D>::LD;
   constexpr int LDV = Smem<D>::LDV;
@@ -125,8 +179,6 @@ flash_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // BLOCK_Q x LD
   __nv_bfloat16* ks = qs + BLOCK_Q * LD;                           // BLOCK_K x LD
   __nv_bfloat16* vt = ks + BLOCK_K * LD;                           // D x LDV
-  float* bh_s = reinterpret_cast<float*>(smem_raw + Smem<D>::TILE_BYTES);  // BLOCK_Q x grid_h
-  float* bw_s = bh_s + BLOCK_Q * grid_h;                                   // BLOCK_Q x grid_w
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -147,17 +199,6 @@ flash_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
     uint4 val = zero;
     if (q0 + r < n) val = *reinterpret_cast<const uint4*>(q + static_cast<size_t>(q0 + r) * D + c);
     *reinterpret_cast<uint4*>(qs + r * LD + c) = val;
-  }
-  if (REL_POS) {
-    const size_t row_base = static_cast<size_t>(head) * n + q0;
-    for (int i = tid; i < BLOCK_Q * grid_h; i += THREADS) {
-      const int r = i / grid_h;
-      bh_s[i] = (q0 + r < n) ? bias_h[row_base * grid_h + i] : 0.f;
-    }
-    for (int i = tid; i < BLOCK_Q * grid_w; i += THREADS) {
-      const int r = i / grid_w;
-      bw_s[i] = (q0 + r < n) ? bias_w[row_base * grid_w + i] : 0.f;
-    }
   }
   __syncthreads();
 
@@ -212,7 +253,7 @@ flash_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
         mma_16816(s[j], qa[kk], ld32(kb + kk * 16), ld32(kb + kk * 16 + 8));
     }
 
-    // scale, bias, masks, running max
+    // scale, masks, running max
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
     for (int j = 0; j < BLOCK_K / 8; ++j) {
@@ -222,12 +263,7 @@ flash_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
         const int key = k0 + j * 8 + tg * 2 + (e & 1);
         bool ok = key < n_valid;
         if (causal) ok = ok && key <= q_glob[r];
-        float x = s[j][e] * scale;
-        if (REL_POS && ok) {
-          const int lr = row0 + 8 * r;
-          x += bh_s[lr * grid_h + key / grid_w] + bw_s[lr * grid_w + key % grid_w];
-        }
-        x = ok ? x : NEG_INF;
+        const float x = ok ? s[j][e] * scale : NEG_INF;
         s[j][e] = x;
         mx[r] = fmaxf(mx[r], x);
       }
@@ -294,41 +330,43 @@ flash_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   }
 }
 
-template <int D, bool REL_POS>
-int launch(const void* q, const void* k, const void* v, const void* bias_h, const void* bias_w,
-           void* o, int bh, int n, int grid_h, int grid_w, int causal, int n_valid, float scale,
-           cudaStream_t stream) {
-  size_t smem = Smem<D>::TILE_BYTES;
-  if (REL_POS) smem += static_cast<size_t>(BLOCK_Q) * (grid_h + grid_w) * sizeof(float);
-  auto kernel = flash_kernel<D, REL_POS>;
+// Head dim 64 only: the dim of every attention layer on the ported path.
+int launch_streamed(const void* q, const void* k, const void* v, void* o, int bh, int n, int causal,
+                    int n_valid, float scale, cudaStream_t stream) {
+  constexpr int D = 64;
+  constexpr size_t smem = Smem<D>::TILE_BYTES;
+  auto kernel = flash_kernel<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((n + BLOCK_Q - 1) / BLOCK_Q, bh);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias_h),
-      static_cast<const float*>(bias_w), static_cast<__nv_bfloat16*>(o), n, grid_h, grid_w,
-      causal, n_valid, scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), n, causal, n_valid, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-constexpr int T_MAX = 320;  // longest T the resident kernel takes (80 KB of K and V); ops/flash_attention.py routes on its copy
+// ---------------------------------------------------------------------------
+// The resident kernel: K1 and K2, N <= T_MAX
+// ---------------------------------------------------------------------------
+
+constexpr int T_MAX = 320;  // longest N the resident kernel takes (80 KB of K and V); ops/flash_attention.py routes on its copy
 constexpr int RES_WARPS = 4;
 constexpr int RES_THREADS = RES_WARPS * 32;
 constexpr int RES_MIN_BLOCKS = 3;  // blocks an SM must hold: at most 168 registers a thread
 constexpr int CHUNK = 4;           // 16-key groups per step of the online softmax
-constexpr int ROW_BYTES = 128;  // one 64-wide bf16 row of K or V
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+constexpr int RES_HW_MAX = 128;    // largest grid_h + grid_w the resident kernel takes with the bias; ops/flash_attention.py has a copy
 
 // byte offset of 16-byte chunk `c` (0..7) of row `r` in a swizzled K or V panel
 __device__ __forceinline__ uint32_t swz(int r, int c) { return r * ROW_BYTES + ((c ^ (r & 7)) << 4); }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+// 4 bytes, or zeros where !valid (src-size 0: nothing is read)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 template <int N>
@@ -369,21 +407,21 @@ __device__ __forceinline__ void wait_for_v() {
   asm volatile("barrier.sync 1;\n" ::: "memory");
 }
 
-struct Strides {
-  long long b, h, t;  // batch, head and token strides in elements; the last dim is contiguous
+// K1's decomposed bias: (bh, t, grid_h) and (bh, t, grid_w) f32, contiguous.
+struct RelPos {
+  const float* bias_h;
+  const float* bias_w;
+  int grid_h, grid_w;
 };
 
-// 2^x by the SFU (ex2.approx, flush to zero: about 2 ulps, and
-// 2^(-huge) = 0 for masked scores)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
+// This thread's two query rows (g and g + 8 of its warp's tile) of bias_h
+// and bias_w, in its warp's shared slice.
+struct BiasRows {
+  const float *h0, *w0, *h1, *w1;
+};
 
 // One warp's 16 query rows: Q as mma A fragments, the output accumulator
-// and the running max (of raw scores) and partial sum of each of its two
-// rows.
+// and the running max and partial sum of each of its two rows.
 struct Rows {
   uint32_t qa[4][4];
   float acc[8][4];
@@ -394,10 +432,14 @@ struct Rows {
 // S = Q K^T (mma.sync m16n8k16, K's B fragments by ldmatrix), the online
 // softmax in log2 units, acc += P V (V's B fragments by ldmatrix.trans).
 // MASK: the chunk holds the key tail, and keys at or past t are masked.
+// `scale`: d^-1/2 * log2(e) without the bias.  REL_POS: `scale` is d^-1/2,
+// each score becomes s * scale + bias_h[ky] + bias_w[kx], with (ky, kx) from
+// the key table `tab` and the rows from `br`, and the max is that of the
+// biased scores.
 // No branch inside, so the compiler interleaves the groups' MMAs.
-template <int G, bool MASK>
-__device__ __forceinline__ void attend_chunk(Rows& st, uint32_t ks, uint32_t vs, int key0, int t,
-                                             float scale_log2, bool& v_ready) {
+template <int G, bool MASK, bool REL_POS>
+__device__ __forceinline__ void attend_chunk(Rows& st, uint32_t ks, uint32_t vs, int key0, int t, float scale,
+                                             bool& v_ready, const uint32_t* tab, const BiasRows& br) {
   constexpr int D = 64;
   const int lane = threadIdx.x & 31;
   const int tg = lane & 3;
@@ -419,8 +461,20 @@ __device__ __forceinline__ void attend_chunk(Rows& st, uint32_t ks, uint32_t vs,
       mma_16816(s[j], st.qa[kk], kb[kk / 2][(kk % 2) * 2], kb[kk / 2][(kk % 2) * 2 + 1]);
   }
 
-  // running max of the raw scores (the scale is positive), then
-  // p = 2^(s * scale_log2 - max * scale_log2): one FFMA and one ex2 a score
+  if constexpr (REL_POS) {
+#pragma unroll
+    for (int j = 0; j < 2 * G; ++j) {
+      const uint2 e = *reinterpret_cast<const uint2*>(tab + key0 + j * 8 + tg * 2);  // keys 2tg, 2tg + 1
+      s[j][0] = fmaf(s[j][0], scale, br.h0[e.x & 0xffffu] + br.w0[e.x >> 16]);
+      s[j][1] = fmaf(s[j][1], scale, br.h0[e.y & 0xffffu] + br.w0[e.y >> 16]);
+      s[j][2] = fmaf(s[j][2], scale, br.h1[e.x & 0xffffu] + br.w1[e.x >> 16]);
+      s[j][3] = fmaf(s[j][3], scale, br.h1[e.y & 0xffffu] + br.w1[e.y >> 16]);
+    }
+  }
+  // the running max of the scores (without the bias: the raw ones, the
+  // scale being positive), then p = 2^(s * sc - max * sc): one FFMA and one
+  // ex2 a score
+  const float sc = REL_POS ? LOG2E : scale;
   float mx[2] = {st.m[0], st.m[1]};
 #pragma unroll
   for (int j = 0; j < 2 * G; ++j) {
@@ -435,10 +489,10 @@ __device__ __forceinline__ void attend_chunk(Rows& st, uint32_t ks, uint32_t vs,
   for (int r = 0; r < 2; ++r) {
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    alpha[r] = ex2((st.m[r] - mx[r]) * scale_log2);
+    alpha[r] = ex2((st.m[r] - mx[r]) * sc);
     st.m[r] = mx[r];
     st.l[r] *= alpha[r];
-    shift[r] = -mx[r] * scale_log2;
+    shift[r] = -mx[r] * sc;
   }
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
@@ -451,7 +505,7 @@ __device__ __forceinline__ void attend_chunk(Rows& st, uint32_t ks, uint32_t vs,
   for (int j = 0; j < 2 * G; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float p = ex2(fmaf(s[j][e], scale_log2, shift[e >> 1]));
+      const float p = ex2(fmaf(s[j][e], sc, shift[e >> 1]));
       s[j][e] = p;
       st.l[e >> 1] += p;
     }
@@ -479,14 +533,22 @@ __device__ __forceinline__ void attend_chunk(Rows& st, uint32_t ks, uint32_t vs,
   }
 }
 
+// Shared memory of the resident kernel for t tokens; hw = grid_h + grid_w
+// with the bias (the key table and four warps' two bias slices), 0 without.
+__host__ __device__ constexpr size_t resident_smem(int t, int hw) {
+  return static_cast<size_t>(2) * ((t + 15) & ~15) * ROW_BYTES +
+         (hw ? static_cast<size_t>((t + 15) & ~15) * 4 + static_cast<size_t>(2 * RES_WARPS) * 16 * hw * 4 : 0);
+}
+
 // q, k, v (B, H, T, 64) bf16 at the given strides; o (B, T, H, 64) bf16,
 // contiguous.  Block (x, y): head y = b * H + h, query tiles
 // [x * tiles_per_block, (x + 1) * tiles_per_block) of 16 rows, one warp each
 // in turn.
+template <bool REL_POS>
 __global__ void __launch_bounds__(RES_THREADS, RES_MIN_BLOCKS)
 resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, Strides sq, Strides sk,
-                Strides sv, int heads, int t, int tiles_per_block, float scale_log2) {
+                Strides sv, int heads, int t, int tiles_per_block, float scale, RelPos rp) {
   constexpr int D = 64;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int t16 = (t + 15) & ~15;
@@ -510,8 +572,20 @@ resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   const int full_chunks = t / (16 * CHUNK);  // chunks with no key at or past t
   const int tail = n16 - CHUNK * full_chunks;  // 16-key groups left, 0 to CHUNK, masked
 
+  // with the bias: key k's (ky, kx), one division per key and block; then
+  // this warp's two slices, each 16 rows of bias_h and 16 of bias_w
+  uint32_t* tab = reinterpret_cast<uint32_t*>(vs_ptr + t16 * ROW_BYTES);
+  const int hw = rp.grid_h + rp.grid_w;
+  float* slices = reinterpret_cast<float*>(tab + t16) + warp * 2 * 16 * hw;
+  if constexpr (REL_POS) {
+    for (int i = threadIdx.x; i < t16; i += RES_THREADS) {
+      const int ky = i / rp.grid_w;
+      tab[i] = i < t ? static_cast<uint32_t>(ky) | static_cast<uint32_t>(i - ky * rp.grid_w) << 16 : 0u;
+    }
+  }
+
   cp_async_wait<1>();
-  __syncthreads();  // K is resident
+  __syncthreads();  // K (and the key table) is resident
   bool v_ready = false;
 
   // Q as mma A fragments for the 16 rows of `tile`, straight from device memory
@@ -527,24 +601,52 @@ resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
       qa[kk][3] = r0 + 8 < t ? ld32(p1 + 8) : 0u;
     }
   };
+  // the 16 rows of `tile` of bias_h and bias_w (each 16 consecutive rows of
+  // one head: contiguous) into this warp's slice `buf`, by cp.async in one
+  // commit group; rows past t are zeros
+  auto load_bias = [&](int tile, int buf) {
+    float* dst = slices + buf * 16 * hw;
+    const size_t row0 = static_cast<size_t>(blockIdx.y) * t + tile * 16;
+    const int nh = min(16, t - tile * 16) * rp.grid_h, nw = min(16, t - tile * 16) * rp.grid_w;
+    const float* src_h = rp.bias_h + row0 * rp.grid_h;
+    const float* src_w = rp.bias_w + row0 * rp.grid_w;
+    for (int i = lane; i < 16 * rp.grid_h; i += 32) cp_async4(smem_u32(dst + i), src_h + min(i, nh - 1), i < nh);
+    for (int i = lane; i < 16 * rp.grid_w; i += 32)
+      cp_async4(smem_u32(dst + 16 * rp.grid_h + i), src_w + min(i, nw - 1), i < nw);
+    cp_async_commit();
+  };
   Rows st;
+  BiasRows br{};
   int tile = blockIdx.x * tiles_per_block + warp;
+  if (REL_POS && tile < tile_end) load_bias(tile, 0);
   if (tile < tile_end) load_q(st.qa, tile);
-  for (; tile < tile_end; tile += RES_WARPS) {
+  for (int it = 0; tile < tile_end; tile += RES_WARPS, ++it) {
     const int r0 = tile * 16 + g;  // this thread's rows r0 and r0 + 8
+    if constexpr (REL_POS) {
+      __syncwarp();  // every lane is done with the slice the next tile's rows go to
+      if (tile + RES_WARPS < tile_end)
+        load_bias(tile + RES_WARPS, (it + 1) & 1);
+      else
+        cp_async_commit();  // an empty group: this tile's rows are always the second newest
+      cp_async_wait<1>();
+      __syncwarp();  // this tile's rows, copied by every lane, have landed
+      const float* buf = slices + (it & 1) * 16 * hw;
+      br = BiasRows{buf + g * rp.grid_h, buf + 16 * rp.grid_h + g * rp.grid_w, buf + (g + 8) * rp.grid_h,
+                    buf + 16 * rp.grid_h + (g + 8) * rp.grid_w};
+    }
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) st.acc[j][0] = st.acc[j][1] = st.acc[j][2] = st.acc[j][3] = 0.f;
     st.m[0] = st.m[1] = NEG_INF;
     st.l[0] = st.l[1] = 0.f;  // per-thread partial sums, reduced at the end
 
     for (int c = 0; c < full_chunks; ++c)
-      attend_chunk<CHUNK, false>(st, ks, vs, c * 16 * CHUNK, t, scale_log2, v_ready);
+      attend_chunk<CHUNK, false, REL_POS>(st, ks, vs, c * 16 * CHUNK, t, scale, v_ready, tab, br);
     const int key0 = full_chunks * 16 * CHUNK;
     switch (tail) {  // cases above CHUNK never occur
-      case 4: attend_chunk<4, true>(st, ks, vs, key0, t, scale_log2, v_ready); break;
-      case 3: attend_chunk<3, true>(st, ks, vs, key0, t, scale_log2, v_ready); break;
-      case 2: attend_chunk<2, true>(st, ks, vs, key0, t, scale_log2, v_ready); break;
-      case 1: attend_chunk<1, true>(st, ks, vs, key0, t, scale_log2, v_ready); break;
+      case 4: attend_chunk<4, true, REL_POS>(st, ks, vs, key0, t, scale, v_ready, tab, br); break;
+      case 3: attend_chunk<3, true, REL_POS>(st, ks, vs, key0, t, scale, v_ready, tab, br); break;
+      case 2: attend_chunk<2, true, REL_POS>(st, ks, vs, key0, t, scale, v_ready, tab, br); break;
+      case 1: attend_chunk<1, true, REL_POS>(st, ks, vs, key0, t, scale, v_ready, tab, br); break;
       default: break;
     }
 
@@ -579,66 +681,468 @@ struct Plan {
   size_t smem;
 };
 
-cudaError_t resident_plan(int bh, int t, Plan* plan) {
-  const int t16 = (t + 15) & ~15;
-  plan->smem = static_cast<size_t>(2) * t16 * ROW_BYTES;
-  // per device: the shared-memory allowance (set once, for T_MAX) and the
-  // blocks per SM at each t16, so a launch makes no CUDA queries after the
-  // first at its length
-  static std::atomic<int> blocks_per_sm[32][T_MAX / 16 + 1];
+// hw: grid_h + grid_w with the bias (REL_POS), else 0.
+template <bool REL_POS>
+cudaError_t resident_plan(int bh, int t, int hw, Plan* plan) {
+  plan->smem = resident_smem(t, REL_POS ? hw : 0);
+  // per device: the shared-memory allowance (set once, for the largest
+  // launch) and the blocks per SM at each size, so a launch makes no CUDA
+  // queries after the first at its size
+  static std::mutex mu;
+  static std::map<std::pair<int, size_t>, int> blocks_per_sm;
+  auto kernel = resident_kernel<REL_POS>;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  int cached = dev < 32 ? blocks_per_sm[dev][t16 / 16].load() : 0;
+  const std::pair<int, size_t> key{dev, plan->smem};
+  int cached = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto it = blocks_per_sm.find(key);
+    if (it != blocks_per_sm.end()) cached = it->second;
+  }
   if (cached == 0) {
-    err = cudaFuncSetAttribute(resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               2 * T_MAX * ROW_BYTES);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(resident_smem(T_MAX, REL_POS ? RES_HW_MAX : 0)));
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cached, resident_kernel, RES_THREADS, plan->smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cached, kernel, RES_THREADS, plan->smem);
     if (err != cudaSuccess) return err;
-    if (dev < 32) blocks_per_sm[dev][t16 / 16].store(cached);
+    std::lock_guard<std::mutex> lock(mu);
+    blocks_per_sm[key] = cached;
   }
   plan->blocks_per_sm = cached;
   plan->sms = sms;
   const int n16 = (t + 15) / 16;
   const int slots = plan->blocks_per_sm * sms;
-  int splits = (n16 + 2 * RES_WARPS) / (2 * RES_WARPS + 1);
-  while (bh * splits < slots && (n16 + splits) / (splits + 1) >= RES_WARPS) ++splits;
+  // a block's query tiles: at most 2 * RES_WARPS + 1, and more blocks while
+  // the grid does not fill the card; but one head a block when the heads
+  // alone fill more than half of one wave, where a split would only add a
+  // second wave and stage each head's K and V twice (the SAM windows: 300
+  // heads on 396 slots, faster as one block a head)
+  int splits = 1;
+  if (2 * bh <= slots || bh > slots) {
+    splits = (n16 + 2 * RES_WARPS) / (2 * RES_WARPS + 1);
+    while (bh * splits < slots && (n16 + splits) / (splits + 1) >= RES_WARPS) ++splits;
+  }
   plan->tiles_per_block = (n16 + splits - 1) / splits;
   plan->splits = (n16 + plan->tiles_per_block - 1) / plan->tiles_per_block;
   return cudaSuccess;
 }
 
-// Head dim 64 only: the dim of every attention layer on the ported path.
 template <bool REL_POS>
-int dispatch(const void* q, const void* k, const void* v, const void* bias_h, const void* bias_w,
-             void* o, int bh, int n, int d, int grid_h, int grid_w, int causal, int n_valid,
-             float scale, cudaStream_t stream) {
-  if (d != 64) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<64, REL_POS>(q, k, v, bias_h, bias_w, o, bh, n, grid_h, grid_w, causal, n_valid,
-                             scale, stream);
+int launch_resident(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk, Strides sv,
+                    int b, int h, int t, float scale, RelPos rp, cudaStream_t stream) {
+  Plan plan;
+  cudaError_t err = resident_plan<REL_POS>(b * h, t, rp.grid_h + rp.grid_w, &plan);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(plan.splits, b * h);
+  resident_kernel<REL_POS><<<grid, RES_THREADS, plan.smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq, sk, sv, h, t,
+      plan.tiles_per_block, REL_POS ? scale : scale * LOG2E, rp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The global kernel: K1, N > T_MAX, TMA + wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int G_W = 64;        // the grid width it takes: a 128-key tile is two grid rows
+constexpr int G_BQ = 128;      // queries a block: two consumer warpgroups of 64
+constexpr int G_BK = 128;      // keys a tile
+constexpr int G_STAGES = 3;    // K/V ring
+constexpr int G_THREADS = 384; // producer warpgroup + two consumer warpgroups
+constexpr int G_CONSUMER_WARPS = 8;
+constexpr int G_TILE_BYTES = G_BK * ROW_BYTES;  // one K or V tile, 16 KB
+constexpr int G_Q_BYTES = G_BQ * ROW_BYTES;     // 16 KB
+constexpr int G_SMEM = G_Q_BYTES + G_STAGES * 2 * G_TILE_BYTES + 1024;  // + slack to align to 1 KB
+static_assert(G_BQ == G_BK, "one TMA box shape serves Q, K and V");
+static_assert(G_BK % G_W == 0, "a key tile holds whole grid rows");
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Spin until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One (64 x G_BK rows) box of a 4-D (D, token, head, batch) bf16 tensor map
+// into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int row, int head,
+                                         int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, "
+      "%6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(head), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory descriptors of a tile loaded by TMA with the 128-byte
+// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (the stride byte
+// offset).  K-major (Q, K): the leading byte offset is unused; a 16-element
+// K step inside the swizzle row adds 32 bytes to the start.  MN-major (V,
+// read with transpose-B): the 8-row groups step along K (16 keys: two
+// groups; the next 16 keys start 2048 bytes on), and the leading byte offset
+// would step along N to a second 64-wide atom, which a 64-wide head does not
+// have: it is set to 1024 too.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo = 16) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+__device__ __forceinline__ uint64_t sw128_desc_mn(uint32_t addr) { return sw128_desc(addr, 1024); }
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep registers that an asynchronous wgmma reads or writes in place until
+// after its wait: nothing before this point may reuse or read them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (m64 x 128 keys, f32, wgmma's accumulator layout) (+)= Q (64 x 16, K-major) * K^T (128 keys x 16, K-major)
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (m64 x 64 head dims, f32) += P (64 x 16 keys, bf16 A fragments in registers) * V (16 keys x 64, MN-major)
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// q, k, v through their tensor maps; bias_h (bh, n, grid_h), bias_w (bh, n,
+// 64) f32, contiguous; o (B, N, H, 64) bf16, contiguous.  Block (x, y):
+// head y = b * H + h, queries [128 x, 128 x + 128).
+__global__ void __launch_bounds__(G_THREADS, 1)
+global_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+              const __grid_constant__ CUtensorMap map_v, const float* __restrict__ bias_h,
+              const float* __restrict__ bias_w, __nv_bfloat16* __restrict__ o, int heads, int n, int grid_h,
+              float scale_log2) {
+  __shared__ __align__(8) uint64_t q_bar, full_bar[G_STAGES], empty_bar[G_STAGES];
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t q_tile = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the 128-byte swizzle wants 1 KB
+  const uint32_t ring = q_tile + G_Q_BYTES;
+
+  const int warpgroup = threadIdx.x / 128;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int q0 = blockIdx.x * G_BQ;
+  const int num_kt = (n + G_BK - 1) / G_BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(smem_u32(&q_bar), 1);
+    for (int s = 0; s < G_STAGES; ++s) {
+      mbar_init(smem_u32(&full_bar[s]), 1);
+      mbar_init(smem_u32(&empty_bar[s]), G_CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warpgroup == 0) {
+    // producer: Q once, then keep the K/V ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(smem_u32(&q_bar), G_Q_BYTES);
+      tma_load(q_tile, &map_q, smem_u32(&q_bar), q0, h, b);
+      for (int kt = 0; kt < num_kt; ++kt) {
+        const int s = kt % G_STAGES;
+        if (kt >= G_STAGES) mbar_wait(smem_u32(&empty_bar[s]), ((kt / G_STAGES) - 1) & 1);
+        const uint32_t full = smem_u32(&full_bar[s]);
+        const uint32_t tile = ring + s * 2 * G_TILE_BYTES;
+        mbar_expect_tx(full, 2 * G_TILE_BYTES);
+        tma_load(tile, &map_k, full, kt * G_BK, h, b);
+        tma_load(tile + G_TILE_BYTES, &map_v, full, kt * G_BK, h, b);
+      }
+    }
+  } else {
+    // consumers: 64 queries each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = warpgroup - 1;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2, tg = lane & 3;
+    const int row[2] = {q0 + c * 64 + warp * 16 + g, q0 + c * 64 + warp * 16 + g + 8};
+    // rows past n (a ragged last block) read row n - 1's bias and are not stored
+    const size_t brow[2] = {static_cast<size_t>(bh) * n + min(row[0], n - 1),
+                            static_cast<size_t>(bh) * n + min(row[1], n - 1)};
+    // bias_w of this thread's two rows and its key columns kx = 8 jj + 2 tg + e,
+    // in log2 units: the same columns in every tile
+    float bw[2][8][2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 w2 = *reinterpret_cast<const float2*>(bias_w + brow[r] * G_W + jj * 8 + tg * 2);
+        bw[r][jj][0] = w2.x * LOG2E;
+        bw[r][jj][1] = w2.y * LOG2E;
+      }
+    const float* bh_row[2] = {bias_h + brow[0] * grid_h, bias_h + brow[1] * grid_h};
+
+    float acc[32], sacc[64];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sacc[i] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // l: per-thread partial sums
+    const uint32_t q_sub = q_tile + c * 64 * ROW_BYTES;
+    mbar_wait(smem_u32(&q_bar), 0);
+
+    for (int kt = 0; kt < num_kt; ++kt) {
+      const int s = kt % G_STAGES;
+      const uint32_t k_tile = ring + s * 2 * G_TILE_BYTES, v_tile = k_tile + G_TILE_BYTES;
+      // bias_h of the tile's two grid rows, issued before the wait; a grid
+      // row past grid_h masks its keys
+      float bhv[2][2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int ky = kt * 2 + half;
+          bhv[r][half] = ky < grid_h ? bh_row[r][ky] * LOG2E : NEG_INF;
+        }
+
+      mbar_wait(smem_u32(&full_bar[s]), (kt / G_STAGES) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_qk(sacc, sw128_desc(q_sub + kk * 32), sw128_desc(k_tile + kk * 32), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sacc);
+
+      // x = s * scale * log2(e) + bias_w; the max over each grid row's half
+      // of the tile, then bias_h per half
+      float mg[2][2] = {{NEG_INF, NEG_INF}, {NEG_INF, NEG_INF}};
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = fmaf(sacc[4 * j + e], scale_log2, bw[e >> 1][j % 8][e & 1]);
+          sacc[4 * j + e] = x;
+          mg[e >> 1][j / 8] = fmaxf(mg[e >> 1][j / 8], x);
+        }
+      float alpha[2], shift[2][2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = fmaxf(m[r], fmaxf(mg[r][0] + bhv[r][0], mg[r][1] + bhv[r][1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        alpha[r] = ex2(m[r] - mx);
+        m[r] = mx;
+        l[r] *= alpha[r];
+        shift[r][0] = bhv[r][0] - mx;
+        shift[r][1] = bhv[r][1] - mx;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[4 * j] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(sacc[4 * j + e] + shift[e >> 1][j / 8]);
+          sacc[4 * j + e] = p;
+          l[e >> 1] += p;
+        }
+      // P as wgmma A fragments: n8 blocks 2kk and 2kk + 1 form k-step kk (16 keys)
+      uint32_t pa[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16x2(sacc[8 * kk + 2 * i], sacc[8 * kk + 2 * i + 1]);
+
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) wgmma_pv(acc, pa[kk], sw128_desc_mn(v_tile + kk * 16 * ROW_BYTES));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
+      if (lane == 0) mbar_arrive(smem_u32(&empty_bar[s]));  // this warp is done with the stage
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float inv = 1.f / fmaxf(sum, 1e-30f);
+      if (row[r] >= n) continue;
+      __nv_bfloat16* out = o + ((static_cast<size_t>(b) * n + row[r]) * heads + h) * 64;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(out + j * 8 + tg * 2) =
+            pack_bf16x2(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda: fetched once through the
+// runtime, so the library does not link against it.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                       : nullptr;
+  }();
+  return fn;
+}
+
+// (batch, heads, n, 64) bf16 at strides `s` (elements) as 64 x G_BK boxes
+// with the 128-byte swizzle; rows past n read as zero.
+cudaError_t make_map(CUtensorMap* map, const void* base, Strides s, int batch, int heads, int n) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s.t) * 2, static_cast<cuuint64_t>(s.h) * 2,
+                                 static_cast<cuuint64_t>(s.b) * 2};
+  const cuuint32_t box[4] = {64, G_BK, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The shared-memory allowance of global_kernel, set once per device.
+cudaError_t global_smem_allowance() {
+  static std::atomic<unsigned> smem_set{0};  // devices it may use its shared memory on
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= 32 || !(smem_set.load() >> dev & 1u))) {
+    err = cudaFuncSetAttribute(global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
+    if (err == cudaSuccess && dev < 32) smem_set.fetch_or(1u << dev);
+  }
+  return err;
+}
+
+int launch_global(const void* q, const void* k, const void* v, const void* bias_h, const void* bias_w, void* o,
+                  Strides sq, Strides sk, Strides sv, int b, int h, int n, int grid_h, float scale,
+                  cudaStream_t stream) {
+  CUtensorMap map_q, map_k, map_v;
+  cudaError_t err = make_map(&map_q, q, sq, b, h, n);
+  if (err == cudaSuccess) err = make_map(&map_k, k, sk, b, h, n);
+  if (err == cudaSuccess) err = make_map(&map_v, v, sv, b, h, n);
+  if (err == cudaSuccess) err = global_smem_allowance();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((n + G_BQ - 1) / G_BQ, b * h);
+  global_kernel<<<grid, G_THREADS, G_SMEM, stream>>>(map_q, map_k, map_v, static_cast<const float*>(bias_h),
+                                                     static_cast<const float*>(bias_w),
+                                                     static_cast<__nv_bfloat16*>(o), h, n, grid_h, scale * LOG2E);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// K1: q, k, v, o (bh, n, d) bf16; bias_h (bh, n, grid_h) f32; bias_w (bh, n, grid_w) f32;
-// n == grid_h * grid_w.  Returns the cudaError_t of the launch.
-extern "C" int ha_flash_attention_2d(const void* q, const void* k, const void* v,
-                                     const void* bias_h, const void* bias_w, void* o, int bh,
-                                     int n, int d, int grid_h, int grid_w, float scale,
-                                     void* stream) {
-  return dispatch<true>(q, k, v, bias_h, bias_w, o, bh, n, d, grid_h, grid_w, 0, n, scale,
-                        static_cast<cudaStream_t>(stream));
+// K1: q, k, v (b, h, n, 64) bf16 at strides s*_b, s*_h, s*_t (elements;
+// multiples of 8, starts 16-byte aligned); bias_h (b*h, n, grid_h) and
+// bias_w (b*h, n, grid_w) f32, contiguous; o (b, n, h, 64) bf16, contiguous;
+// n == grid_h * grid_w.  n <= T_MAX: the resident kernel with the bias, for
+// grid_h + grid_w <= RES_HW_MAX; else the global kernel, which takes grid_w
+// == 64 only.  Returns the cudaError_t
+// of the launch.
+extern "C" int ha_flash_attention_2d(const void* q, const void* k, const void* v, const void* bias_h,
+                                     const void* bias_w, void* o, long long sq_b, long long sq_h, long long sq_t,
+                                     long long sk_b, long long sk_h, long long sk_t, long long sv_b,
+                                     long long sv_h, long long sv_t, int b, int h, int n, int d, int grid_h,
+                                     int grid_w, float scale, void* stream) {
+  if (d != 64 || n <= 0 || b <= 0 || h <= 0 || b * h > 65535 || grid_h <= 0 || grid_w <= 0 ||
+      static_cast<long long>(grid_h) * grid_w != n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides sq{sq_b, sq_h, sq_t}, sk{sk_b, sk_h, sk_t}, sv{sv_b, sv_h, sv_t};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= T_MAX) {
+    if (grid_h + grid_w > RES_HW_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_resident<true>(q, k, v, o, sq, sk, sv, b, h, n, scale,
+                                 RelPos{static_cast<const float*>(bias_h), static_cast<const float*>(bias_w),
+                                        grid_h, grid_w},
+                                 s);
+  }
+  if (grid_w != G_W) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_global(q, k, v, bias_h, bias_w, o, sq, sk, sv, b, h, n, grid_h, scale, s);
 }
 
 // K2: q, k, v, o (bh, t, d) bf16 (a contiguous (B, H, T, D) tensor); keys at or
 // past t_valid are masked; causal != 0 masks k > q.  Returns the cudaError_t.
-extern "C" int ha_flash_attention(const void* q, const void* k, const void* v, void* o, int bh,
-                                  int t, int d, int causal, int t_valid, float scale,
-                                  void* stream) {
-  return dispatch<false>(q, k, v, nullptr, nullptr, o, bh, t, d, 1, 1, causal, t_valid, scale,
-                         static_cast<cudaStream_t>(stream));
+extern "C" int ha_flash_attention(const void* q, const void* k, const void* v, void* o, int bh, int t, int d,
+                                  int causal, int t_valid, float scale, void* stream) {
+  if (d != 64) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_streamed(q, k, v, o, bh, t, causal, t_valid, scale, static_cast<cudaStream_t>(stream));
 }
 
 // K2, non-causal, t <= T_MAX: q, k, v (b, h, t, 64) bf16 at strides s*_b,
@@ -651,29 +1155,40 @@ extern "C" int ha_flash_attention_resident(const void* q, const void* k, const v
                                            void* stream) {
   if (d != 64 || t <= 0 || t > T_MAX || b <= 0 || h <= 0 || b * h > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  Plan plan;
-  cudaError_t err = resident_plan(b * h, t, &plan);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(plan.splits, b * h);
-  resident_kernel<<<grid, RES_THREADS, plan.smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Strides{sq_b, sq_h, sq_t},
-      Strides{sk_b, sk_h, sk_t}, Strides{sv_b, sv_h, sv_t}, h, t, plan.tiles_per_block,
-      scale * 1.44269504088896341f);  // scores in log2 units: exp(x) = exp2(x * log2(e))
-  return static_cast<int>(cudaGetLastError());
+  return launch_resident<false>(q, k, v, o, Strides{sq_b, sq_h, sq_t}, Strides{sk_b, sk_h, sk_t},
+                                Strides{sv_b, sv_h, sv_t}, b, h, t, scale, RelPos{nullptr, nullptr, 0, 0},
+                                static_cast<cudaStream_t>(stream));
 }
 
 // The resident kernel's plan for (bh heads, t tokens), into out[0..3]:
-// query tiles per block, blocks per head, blocks per SM, SMs.  Returns a
-// cudaError_t.
-extern "C" int ha_flash_attention_plan(int bh, int t, int* out) {
-  if (t <= 0 || t > T_MAX) return static_cast<int>(cudaErrorInvalidValue);
+// query tiles per block, blocks per head, blocks per SM, SMs.  hw: grid_h +
+// grid_w for K1 (the bias on), 0 for K2.  Returns a cudaError_t.
+extern "C" int ha_flash_attention_plan(int bh, int t, int hw, int* out) {
+  if (t <= 0 || t > T_MAX || hw < 0 || hw > RES_HW_MAX) return static_cast<int>(cudaErrorInvalidValue);
   Plan plan;
-  const cudaError_t err = resident_plan(bh, t, &plan);
+  const cudaError_t err = hw ? resident_plan<true>(bh, t, hw, &plan) : resident_plan<false>(bh, t, 0, &plan);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = plan.tiles_per_block;
   out[1] = plan.splits;
   out[2] = plan.blocks_per_sm;
   out[3] = plan.sms;
+  return 0;
+}
+
+// The global kernel's launch for (bh heads, n tokens), into out[0..3]:
+// blocks per head, blocks, blocks per SM (the occupancy calculator's), SMs.
+// Returns a cudaError_t.
+extern "C" int ha_flash_attention_2d_global_plan(int bh, int n, int* out) {
+  if (n <= T_MAX || bh <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = global_smem_allowance();
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, global_kernel, G_THREADS, G_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = (n + G_BQ - 1) / G_BQ;
+  out[1] = out[0] * bh;
+  out[2] = per_sm;
+  out[3] = sms;
   return 0;
 }

@@ -159,7 +159,10 @@ def _rel_pos_bias(q_hw: int, rel_table: torch.Tensor) -> torch.Tensor:
 
 def _attention_2d(x: torch.Tensor, blk: EncoderBlock, heads: int, impl: str = "xla") -> torch.Tensor:
     """Attention over a (B, H, W, C) tile with decomposed rel-pos.
-    impl="flash": kernel K1; "xla": its plain version (the same math)."""
+    impl="flash": kernel K1; "xla": its plain version (the same math).
+    q, k and v go to K1 as (B, heads, N, hd) views of the qkv projection,
+    and on the card K1's output is the (B, heads, N, hd) view of a (B, N,
+    heads, hd) buffer: no copy of either around the kernel."""
     b, h, w, c = x.shape
     hd = c // heads
     n = h * w
@@ -174,12 +177,8 @@ def _attention_2d(x: torch.Tensor, blk: EncoderBlock, heads: int, impl: str = "x
     attend = {"flash": flash_attention_2d, "xla": flash_attention_2d_ref}.get(impl)
     if attend is None:
         raise ValueError(f"impl must be 'flash' or 'xla', got {impl!r}")
-    out = attend(
-        q.reshape(b * heads, n, hd), k.reshape(b * heads, n, hd), val.reshape(b * heads, n, hd),
-        bias_h, bias_w, grid_hw=(h, w),
-    )
-    out = out.reshape(b, heads, n, hd).permute(0, 2, 1, 3).reshape(b, h, w, c)
-    return blk.proj(out)
+    out = attend(q, k, val, bias_h, bias_w, grid_hw=(h, w))  # (B, heads, N, hd)
+    return blk.proj(out.transpose(1, 2).reshape(b, h, w, c))
 
 
 def _window_partition(x: torch.Tensor, win: int):

@@ -139,3 +139,83 @@ def test_k2_copies_layouts_the_kernel_does_not_take(layout):
     y, strides = tfa.kernel_layout(x)
     assert y.data_ptr() != x.data_ptr() and y.is_contiguous() and y.data_ptr() % 16 == 0
     assert strides == (heads * t * d, t * d, d) and torch.equal(y, x)
+
+
+def test_flash_attention_2d_ref_matches_pallas_window(rng):
+    """K1's plain version against the Pallas kernel at the window grid the
+    main path launches (14 x 14, d = 64), with the JAX caller's own block_q
+    rule for N = 196 (one whole query block)."""
+    args = _relpos_inputs(rng, 14, bh=3, d=64)
+    ref = jfa.flash_attention_2d(*(jnp.asarray(a) for a in args), grid_hw=(14, 14), block_q=196, interpret=True)
+    out = tfa.flash_attention_2d_ref(*(torch.from_numpy(a) for a in args), grid_hw=(14, 14))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-3, rtol=2e-3)
+
+
+def _attention_2d_views(b, n, heads, d, dtype=torch.bfloat16):
+    """q, k, v as models/sam.py::_attention_2d cuts them from (B, N, 3C)."""
+    qkv = torch.zeros(b, n, 3 * heads * d, dtype=dtype)
+    return qkv, list(qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4))
+
+
+@pytest.mark.parametrize("b,g", [(1, 64), (25, 14)], ids=["global", "windows"])
+def test_k1_reads_attention_2d_views_in_place(b, g):
+    """The strides K1's kernels get for _attention_2d's views, for the
+    global tile and the window batch: token stride 3C, head stride D,
+    batch stride N*3C, each view starting at its third of the projection,
+    no copy."""
+    heads, d, n = 12, 64, g * g
+    qkv, views = _attention_2d_views(b, n, heads, d)
+    strides = (n * 3 * heads * d, d, 3 * heads * d)
+    for i, x in enumerate(views):
+        assert x.shape == (b, heads, n, d)
+        assert tfa.strided_layout(x) == strides
+        y, got = tfa.kernel_layout(x)
+        assert y is x and got == strides
+        assert x.data_ptr() == qkv.data_ptr() + i * heads * d * qkv.element_size()
+
+
+@pytest.mark.parametrize("b,g", [(1, 64), (25, 14)], ids=["global", "windows"])
+def test_k1_output_permutes_back_without_a_copy(b, g):
+    """K1's (B, H, N, D) output view of a (B, N, H, D) buffer: the caller's
+    .transpose(1, 2).reshape(b, h, w, c) of it is a view of the same memory."""
+    heads, d, n = 12, 64, g * g
+    o = tfa.attention_output(b, heads, n, d, torch.bfloat16, "cpu")
+    y = o.transpose(1, 2).reshape(b, g, g, heads * d)
+    assert y.data_ptr() == o.data_ptr() and y._base is o._base and y.is_contiguous()
+
+
+def test_k1_wrapper_takes_3d_and_4d_inputs(rng):
+    """(BH, N, D) and (B, H, N, D) inputs give equal results, each in its
+    own shape; the 4-D plain version equals the 3-D one head by head."""
+    b, heads, g = 2, 3, 4
+    q, k, v, bh, bw = (torch.from_numpy(a) for a in _relpos_inputs(rng, g, bh=b * heads, d=64))
+    out3 = tfa.flash_attention_2d(q, k, v, bh, bw, grid_hw=(g, g))
+    q4, k4, v4 = (x.reshape(b, heads, g * g, 64) for x in (q, k, v))
+    out4 = tfa.flash_attention_2d(q4, k4, v4, bh, bw, grid_hw=(g, g))
+    assert out3.shape == q.shape and out4.shape == q4.shape
+    assert torch.equal(out4.reshape(out3.shape), out3)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_2d(q4, k4, v4, bh[:-1], bw, grid_hw=(g, g))
+
+
+def test_k1_routes_on_the_kernels_limits():
+    """The wrapper's T_MAX, GLOBAL_W and RES_HW_MAX are the source's; the
+    global kernel is TMA + wgmma, and the streamed kernel no longer has a
+    bias instantiation."""
+    text = tfa.LIB.source.read_text()
+    assert f"constexpr int T_MAX = {tfa.T_MAX};" in text
+    assert f"constexpr int G_W = {tfa.GLOBAL_W};" in text
+    assert f"constexpr int RES_HW_MAX = {tfa.RES_HW_MAX};" in text
+    assert "wgmma.mma_async" in text and "cp.async.bulk.tensor" in text and "setmaxnreg" in text
+    assert "flash_kernel<D, REL_POS>" not in text and "flash_kernel(" in text
+    assert tfa.k1_route(14, 14) == "resident"  # vit_b windows
+    assert tfa.k1_route(64, 64) == "global"  # every SAM variant's global layers at 1024 px
+    assert tfa.k1_route(7, 64) == "global"  # an odd grid height: masked in the kernel
+
+
+@pytest.mark.parametrize("grid", [(32, 32), (20, 20), (1, 300)], ids=["global_32_wide", "global_20_wide", "hw_sum"])
+def test_k1_route_raises_for_grids_no_kernel_takes(grid):
+    """No grid goes silently to the plain version on the card: a long grid
+    that is not 64 wide, or a short one with h + w past RES_HW_MAX, raises."""
+    with pytest.raises(ValueError, match="K1"):
+        tfa.k1_route(*grid)

@@ -94,6 +94,41 @@ def test_sam_encoder_flash_matches_reference(rng, dtype):
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("layer", ["windowed", "global"])
+def test_sam_attention_2d_hands_k1_views(monkeypatch, rng, layer):
+    """_attention_2d gives K1 q, k and v as views of the qkv projection and
+    hands K1's output on to proj with no copy, so on the card nothing is
+    copied around the kernel.  A stand-in for the kernel writes the plain
+    result into the kernel's (B, N, H, D) buffer; the layer's output equals
+    the plain path's."""
+    v = tsam.VARIANTS["test-tiny"]
+    m = tsam.init_sam(v, seed=0, device="cpu", dtype=torch.bfloat16)
+    blk = m.encoder.blocks[v.global_idx[0] if layer == "global" else 0]
+    g = v.img_size // v.patch if layer == "global" else v.window
+    b = 1 if layer == "global" else 4
+    x = torch.from_numpy(rng.normal(0, 1, (b, g, g, v.width)).astype(np.float32)).to(torch.bfloat16)
+    seen = {}
+
+    def kernel(q, k, val, bias_h, bias_w, grid_hw):
+        o = tfa.attention_output(*q.shape, q.dtype, "cpu")
+        o.copy_(tfa.flash_attention_2d_ref(q, k, val, bias_h, bias_w, grid_hw))
+        seen.update(views=(q, k, val), out=o)
+        return o
+
+    proj = blk.proj.forward
+    monkeypatch.setattr(blk.proj, "forward", lambda y: (seen.update(proj_in=y), proj(y))[1])
+    monkeypatch.setattr(tsam, "flash_attention_2d", kernel)
+    out = tsam._attention_2d(x, blk, v.heads, impl="flash")
+    q, k, val = seen["views"]
+    assert q.shape == (b, v.heads, g * g, v.width // v.heads)
+    base = q.untyped_storage().data_ptr()
+    for t in (q, k, val):
+        assert t.untyped_storage().data_ptr() == base and tfa.strided_layout(t) == q.stride()[:3]
+    assert seen["proj_in"].data_ptr() == seen["out"].data_ptr() and seen["proj_in"].is_contiguous()
+    monkeypatch.undo()
+    assert torch.equal(out, tsam._attention_2d(x, blk, v.heads, impl="xla"))
+
+
 def test_sam_random_init_shapes():
     v = tsam.VARIANTS["test-tiny"]
     m = tsam.init_sam(v, seed=0, device="cpu")
