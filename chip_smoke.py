@@ -17,17 +17,24 @@ Phases (any failure exits non-zero, with no result line):
      as SAM's _attention_2d splits it, and K2's CLIP cases as views of one
      (B, T, 3W) projection, as the towers' _attend splits it; each prints
      its kernel's plan (K1 global: the TMA + wgmma kernel; the windows and
-     K2: the resident kernel; blocks per SM, waves);
+     K2: the resident kernel; blocks per SM, waves).  K2's text case is the
+     CLIP text tower's launch: 256 prompts, 12 heads, 77 tokens, causal,
+     through the streamed kernel;
   4. towers: at full width, hold the SAM and CLIP encoders through the
      kernels against the same encoders through the plain versions, in bf16
-     and as W8A8 towers (CLIP in both qmm modes);
+     and as W8A8 towers (CLIP in both qmm modes), and the CLIP ViT-L/14 text
+     tower (features of the SCANNET20 prompts);
   5. main paths, each with every launch count set to 0 just before it and
      read just after: Mapper.run + finalize over posed 640x480 frames of the
      synthetic three-room scene, SAM vit_b + CLIP ViT-L/14 from a seeded
      generator at the settings of config/synthetic_tpu_3room.yaml, (a) in
      bf16, (b) with W8A8 towers from apps.common.load_models (the
      reference Mapper's int8 path, qmm="xla"); then (c) the W8A8 tiered
-     extraction with clip_qmm="pallas" on each keyframe.  Per-stage ms,
+     extraction with clip_qmm="pallas" on each keyframe; (d) the graph
+     path in bf16: apps.build_map.run (the Mapper, label features,
+     HMSGraph.build, room names, save), HMSGraph.load of the saved
+     directory (checked equal to the built graph), then
+     FSRQueryEngine.query_hierarchy over fixed instructions.  Per-stage ms,
      frames/s or ms/keyframe, peak memory; the kernels' launch counts and
      their device time inside each run.
 Prints one JSON line of kernels, then the nvidia-smi line, then as the last
@@ -39,10 +46,12 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -51,16 +60,21 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from holoagent_tpu_torch.apps.common import load_models  # noqa: E402
+from holoagent_tpu_torch.apps import build_map  # noqa: E402
+from holoagent_tpu_torch.apps.common import load_models, tokenizer  # noqa: E402
 from holoagent_tpu_torch.config import from_dict  # noqa: E402
 from holoagent_tpu_torch.dataloader import SyntheticDataset, SyntheticScene  # noqa: E402
+from holoagent_tpu_torch.memory.hmsg import HMSGraph  # noqa: E402
 from holoagent_tpu_torch.memory.mapping import Mapper  # noqa: E402
 from holoagent_tpu_torch.models import clip as clip_mod  # noqa: E402
 from holoagent_tpu_torch.models import sam as sam_mod  # noqa: E402
 from holoagent_tpu_torch.models import transformer as tfm  # noqa: E402
 from holoagent_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from holoagent_tpu_torch.ops import quant_matmul as qm  # noqa: E402
+from holoagent_tpu_torch.ops._cuda_build import aligned_contiguous  # noqa: E402
 from holoagent_tpu_torch.perception.extractor import extract_frame_features_tiered  # noqa: E402
+from holoagent_tpu_torch.query import FSRQueryEngine  # noqa: E402
+from holoagent_tpu_torch.utils.labels import DEFAULT_ROOM_TYPES, SCANNET_LABELS_20  # noqa: E402
 from holoagent_tpu_torch.utils.timing import StageTimer  # noqa: E402
 
 # H100 SXM published peaks (dense tensor cores: bf16, int8; HBM3)
@@ -129,7 +143,7 @@ def log(*a) -> None:
 HOLD_CYCLES = 5_000_000  # about 2.5 ms of the card's clock: longer than the host takes to enqueue a sample
 
 
-def time_ms(fn, samples: int = 10, reps: int = 10) -> float:
+def time_ms(fn, samples: int = 10, reps: int = 10, hold: int = HOLD_CYCLES) -> float:
     """Median over `samples` of the mean device time of `reps` back-to-back
     calls, by CUDA events, after a warm-up.  A device-side sleep holds the
     stream while each sample's calls are enqueued, so the events time the
@@ -142,7 +156,7 @@ def time_ms(fn, samples: int = 10, reps: int = 10) -> float:
     out = []
     for _ in range(samples):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(HOLD_CYCLES)
+        torch.cuda._sleep(hold)
         a.record()
         for _ in range(reps):
             fn()
@@ -248,9 +262,10 @@ def k2_case(name, b, h, t, causal, gen, packed=False):
     ref = fa.flash_attention_ref(q, k, v, causal=causal)
     v_bad = v.clone()
     v_bad[:, :, :64] = 0
-    res = hold(name, out, ref, [
-        ("the values of the first 64-key tile dropped", fa.flash_attention_ref(q, k, v_bad, causal=causal)),
-    ])
+    mutants = [("the values of the first 64-key tile dropped", fa.flash_attention_ref(q, k, v_bad, causal=causal))]
+    if causal:
+        mutants.append(("the causal mask shifted by one (each query sees one future key)", causal_ref_shifted(q, k, v)))
+    res = hold(name, out, ref, mutants)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if not causal and t <= fa.T_MAX:
         p = fa.resident_plan(b * h, t)
@@ -263,10 +278,22 @@ def k2_case(name, b, h, t, causal, gen, packed=False):
         plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v, causal=causal), samples=5, reps=2),
         library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=causal)),
     )
+    if (causal or t > fa.T_MAX) and packed:  # the streamed kernel: the wrapper copies the strided q, k, v
+        res["copy_ms"] = time_ms(lambda: [aligned_contiguous(x) for x in (q, k, v)])
     pairs = t * (t + 1) / 2 if causal else t * t  # key/query pairs this input needs
     res["bound_ms"], res["bound_by"] = bound(4.0 * pairs * d * b * h, 4 * b * h * t * d * 2, PEAK_BF16_FLOPS)
     res["ratio_to_library"] = res["ms"] / res["library_ms"]
     return res
+
+
+def causal_ref_shifted(q, k, v):
+    """K2's plain causal version with the mask shifted by one: query i also
+    sees key i + 1 (a mutant the causal cases must reject)."""
+    t, d = q.shape[-2], q.shape[-1]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * d**-0.5
+    idx = torch.arange(t, device=q.device)
+    p = torch.softmax(s.masked_fill(idx[None, :] > idx[:, None] + 1, fa.NEG_INF), dim=-1).to(q.dtype)
+    return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
 def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -364,12 +391,16 @@ def kernel_phases():
         cases.append(k2_case(f"k2_clip_tier{tier}", 2 * tier + 1, 16, 257, False, gen, packed=True))
     cases.append(k2_case("k2_causal_t384", 4, 16, 384, True, gen))  # the streamed kernel
     cases.append(k2_case("k2_t200", 4, 16, 200, False, gen))
+    # the CLIP ViT-L/14 text tower: a padded batch of 256 prompts, 12 heads, 77 tokens, causal
+    cases.append(k2_case("k2_text_causal_t77", 256, 12, 77, True, gen, packed=True))
     for c in cases:
         log(f"[kernel] {c['name']:18s} {c['shape']:49s} err {c['max_abs_err']:.3e} (tol {c['tol']:.3e}, "
             f"max|ref| {c['ref_max']:.3e}, rms(ref) {c['ref_rms']:.3e}, rel rms err {c['rel_rms_err']:.3e} "
             f"tol {REL_RMS_TOL:.3e}) "
             f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  library {c['library_ms']:.4f} ms  "
             f"({c['ratio_to_library']:.2f}x)  bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+        if "copy_ms" in c:
+            log(f"[kernel] {c['name']}: the streamed kernel's copies of the strided q, k, v: {c['copy_ms']:.4f} ms")
         if "plan" in c:
             p = c["plan"]
             tiles = f"{p['tiles_per_block']} query tiles a block, " if "tiles_per_block" in p else ""
@@ -470,6 +501,38 @@ def q8_tower_checks(qclip, qsam, frame, e_bf16, f_bf16):
         check(c > 0.9995, f"W8A8 CLIP qmm={qmm} through the kernels disagrees with the plain versions")
 
 
+# about 3x the difference read on an H100 (1 - cosine 4.9e-5)
+TEXT_COS_MIN = 0.99985
+
+
+def text_tower_check(text):
+    """The full-width CLIP text tower through K2's causal mode vs through
+    its plain version: the multi-template features of the SCANNET20 prompts
+    (42 prompts, one padded batch of 256); and the time of one batch."""
+    tok = tokenizer()
+    labels = list(SCANNET_LABELS_20)
+    n0 = fa.flash_attention.launches
+    f_k = clip_mod.text_features_multi_template(text, tok, labels)
+    check(fa.flash_attention.launches - n0 == text.variant.t_layers, "text tower: K2 launches")
+    f_p = clip_mod.text_features_multi_template(text, tok, labels, impl="xla")
+    check(fa.flash_attention.launches - n0 == text.variant.t_layers, "the plain text tower launched K2")
+    check(bool(torch.isfinite(f_k).all()), "text tower: non-finite features")
+    cos = F.cosine_similarity(f_k, f_p, dim=-1).min().item()
+    prompts = [t.format(lb) for lb in labels for t in clip_mod.TEMPLATES]
+    tokens = F.pad(torch.from_numpy(tok(prompts)), (0, 0, 0, 256 - len(prompts))).cuda()
+    # a batch is about 200 launches: hold the stream 40x longer than for one kernel
+    batch_ms = time_ms(lambda: clip_mod.encode_text(text, tokens), samples=5, reps=3, hold=40 * HOLD_CYCLES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clip_mod.encode_text(text, tokens)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    log(f"[towers] CLIP ViT-L/14 text tower (12 layers, width 768) flash vs plain on the SCANNET20 prompts: "
+        f"min cosine {cos:.6f}; a batch of 256 prompts through the kernels: {batch_ms:.3f} ms of device time, "
+        f"{wall_ms:.3f} ms of wall time (synchronised)")
+    check(cos > TEXT_COS_MIN, "CLIP text tower through K2 disagrees with the plain version")
+
+
 def counted(run):
     """Set every launch count to 0 and start tracing, call `run`, then read
     the counts and each launch's device time (CUDA events)."""
@@ -559,6 +622,98 @@ def extraction_path(qclip, qsam, ds, cfg, tag, expect, mapper_feats):
     return dict(launches=launches, in_path=in_path, nf=nf)
 
 
+QUERIES = (
+    "the chair in the kitchen", "find a table on floor 1", "go to the bathroom",
+    "bring me the sofa in the living room", "the bed in the bedroom on the first floor", "find the toilet",
+    "the desk in the office", "去一楼的厨房找椅子",
+)
+
+
+def same_graph(built, loaded) -> None:
+    """The graph loaded from the saved directory against the built one:
+    ids, names, counts, point arrays."""
+    for what in ("floors", "rooms", "objects", "views"):
+        check(len(getattr(built, what)) == len(getattr(loaded, what)), f"loaded graph: {what} count")
+    for a, b in zip(sorted(built.floors, key=lambda f: f.floor_id), loaded.floors):
+        check((a.floor_id, a.name) == (b.floor_id, b.name), "loaded graph: floor ids")
+        check(bool((a.pcd_points == b.pcd_points).all()), "loaded graph: floor points")
+    for a, b in zip(sorted(built.rooms, key=lambda r: r.room_id), loaded.rooms):
+        check((a.room_id, a.name, a.floor_id) == (b.room_id, b.name, b.floor_id), "loaded graph: room ids, names")
+        check(bool((a.pcd_points == b.pcd_points).all()), f"loaded graph: room {a.room_id} points")
+        check(a.represent_images == b.represent_images, "loaded graph: representative images")
+    for a, b in zip(sorted(built.objects, key=lambda o: o.object_id), loaded.objects):
+        check((a.object_id, a.name, a.view_ids, a.best_view_id) == (b.object_id, b.name, b.view_ids, b.best_view_id),
+              "loaded graph: object ids, names, views")
+        check(bool((a.pcd_points == b.pcd_points).all()), f"loaded graph: object {a.object_id} points")
+    for a, b in zip(sorted(built.views, key=lambda v: v.view_id), loaded.views):
+        check((a.view_id, a.img_id, a.object_ids) == (b.view_id, b.img_id, b.object_ids), "loaded graph: views")
+
+
+def graph_path(clip, sam, text, ds, cfg, tag):
+    """apps.build_map.run (the Mapper, label features, HMSGraph.build, room
+    names, save) into a temporary directory, HMSGraph.load of the saved
+    graph, then the fast queries, counted as one run.  K1: 12 launches a
+    keyframe; K2: 24 a keyframe and 12 a padded text batch (SCANNET20's
+    prompts, ROOM_TYPES', and each engine call that encodes new texts)."""
+    skip = cfg.pipeline.skip_frames
+    nf = len(range(0, len(ds), skip))
+    Mapper(cfg, clip, sam).process_frame(ds[0])  # warm-up, outside the counted run
+    tok = tokenizer()
+    timer = StageTimer("cuda")
+    engine_batches = []
+    with tempfile.TemporaryDirectory() as tmp:
+        gcfg = from_dict({**CONFIG, "main": {**CONFIG["main"], "save_path": tmp}})
+
+        def run():
+            graph_dir, built = build_map.run(gcfg, dataset=ds, models=(clip, sam, clip.variant, sam.variant, text),
+                                             timer=timer)
+            with timer.stage("load"):
+                loaded = HMSGraph.load(graph_dir)
+            eng = FSRQueryEngine(loaded, text, tok)
+            encode, seen = eng.text_feats, set()
+
+            def text_feats(texts):  # count the padded text batches the engine encodes
+                missing = [t for t in texts if t not in seen]
+                if missing:
+                    engine_batches.append(math.ceil(len(missing) * len(clip_mod.TEMPLATES) / 256))
+                seen.update(texts)
+                return encode(texts)
+
+            eng.text_feats = text_feats
+            return built, loaded, [(q, eng.query_hierarchy(q)) for q in QUERIES]
+
+        (built, loaded, answers), wall, launches, in_path, peak = counted(run)
+    log(f"[{tag}] build_map.run + load + {len(QUERIES)} queries over {nf} keyframes in {wall:.3f} s")
+    report(tag, nf, wall, timer, launches, in_path, peak, {})
+    label_batches = sum(math.ceil(len(v) * len(clip_mod.TEMPLATES) / 256) for v in (SCANNET_LABELS_20, DEFAULT_ROOM_TYPES))
+    batches = label_batches + sum(engine_batches)
+    expect = {"flash_attention_2d": 12 * nf, "flash_attention": 24 * nf + text.variant.t_layers * batches,
+              "quant_matmul": 0}
+    log(f"[{tag}] text batches of 256 prompts: {label_batches} for the label features, {engine_batches} for the "
+        f"engine's calls; expected launches {expect}")
+    for name, n in expect.items():
+        check(launches[name] == n, f"{tag}: {name} launches {launches[name]} != {n}")
+    log(f"[{tag}] graph: {len(built.floors)} floors, {len(built.rooms)} rooms "
+        f"{[(r.room_id, r.name) for r in built.rooms]}, {len(built.views)} views, {len(built.objects)} objects "
+        f"{sorted(o.name for o in built.objects)}")
+    check(len(built.floors) >= 1 and len(built.rooms) >= 1, "graph: no floor or no room")
+    check({v.img_id for v in built.views} == {i * skip for i in range(nf)} and len(built.views) >= nf,
+          "graph: not one view per assigned keyframe")
+    for what, embs in (("object", [o.embedding for o in built.objects]),
+                       ("room", [e for r in built.rooms for e in r.embeddings]),
+                       ("view", [v.embedding for v in built.views])):
+        check(all(bool(torch.isfinite(torch.as_tensor(e)).all()) for e in embs), f"graph: non-finite {what} features")
+    same_graph(built, loaded)
+    fast = []
+    for q, (floor, rooms, objs, res) in answers:
+        check("FastMatching" in res and "Total_Time" in res, f"query {q!r}: no timing in res")
+        fast.append(1e3 * res["FastMatching"])
+        log(f"[{tag}] query {q!r}: floor {floor.floor_id if floor else None}, rooms {[r.room_id for r in rooms]}, "
+            f"objects {[(o.object_id, o.name) for o in objs]}, FastMatching {fast[-1]:.3f} ms")
+    log(f"[{tag}] FastMatching per query: median {statistics.median(fast):.3f} ms, max {max(fast):.3f} ms")
+    return dict(launches=launches, in_path=in_path, nf=nf)
+
+
 KERNELS = (
     ("flash_attention_2d", "holoagent_tpu_torch/csrc/flash_attention.cu", "holoagent_tpu/ops/flash_attention.py:157",
      "bf16"),
@@ -643,9 +798,9 @@ def main() -> int:
         qcfg_dict["models"][tower]["quant"] = True
     qcfg = from_dict(qcfg_dict)
     t0 = time.perf_counter()
-    clip = clip_mod.init_clip_visual(clip_mod.VARIANTS[cfg.models.clip.type], seed=SEED, dtype=torch.bfloat16)
+    clip, text = clip_mod.init_clip(clip_mod.VARIANTS[cfg.models.clip.type], seed=SEED, dtype=torch.bfloat16)
     sam = sam_mod.init_sam(sam_mod.VARIANTS[cfg.models.sam.type], seed=SEED + 1, dtype=torch.bfloat16)
-    qclip, qsam, _, _ = load_models(qcfg)  # the same seeds: the int8 towers of the bf16 ones
+    qclip, qsam, _, _, _ = load_models(qcfg)  # the same seeds: the int8 towers of the bf16 ones
     ds = SyntheticDataset(SyntheticScene.three_room(SEED), num_frames=FRAMES, hw=(480, 640), seed=SEED)
     for i in range(0, len(ds), cfg.pipeline.skip_frames):
         ds[i]  # render up front: data set-up is not mapping time
@@ -653,12 +808,14 @@ def main() -> int:
 
     e_bf16, f_bf16 = tower_checks(clip, sam, ds[0])
     q8_tower_checks(qclip, qsam, ds[0], e_bf16, f_bf16)
+    text_tower_check(text)
     paths = {"bf16": main_path(clip, sam, ds, cfg, "main", {"flash_attention_2d": 12, "flash_attention": 24,
                                                              "quant_matmul": 0})}
     q8_expect = {"flash_attention_2d": 12, "flash_attention": 24, "quant_matmul": 144}
     paths["w8a8"] = main_path(qclip, qsam, ds, qcfg, "w8a8", q8_expect)
     paths["w8a8 extraction, clip_qmm=pallas"] = extraction_path(
         qclip, qsam, ds, qcfg, "w8a8-pallas", q8_expect, paths["w8a8"]["ms"].keyframe_feats)
+    paths["graph: build_map.run, load, queries"] = graph_path(clip, sam, text, ds, cfg, "graph")
     print(json.dumps(kernels_line(cases, paths)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

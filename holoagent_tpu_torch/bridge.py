@@ -16,10 +16,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .dataloader.generic import RGBDFrame
 from .device import DeviceLike
 from .memory.instances import InstanceSet
+from .memory.mapping import MappedScene
 from .memory.scene import SceneState
-from .models.clip import CLIPVariant, CLIPVisual
+from .models.clip import CLIPText, CLIPVariant, CLIPVisual
 from .models.sam import SAM, SAMVariant
 from .ops.voxel import GridSpec
 from .perception.extractor import FrameFeatures
@@ -73,6 +75,20 @@ def clip_from_jax(
         for name, arr in stacked.items():
             flat[f"{key}.{i}.{name}"] = np.asarray(arr)[i]
     return load_flat(CLIPVisual(variant, dtype=dtype, device=device, quant=quant), flat)
+
+
+def clip_text_from_jax(
+    np_params: Dict[str, Any], variant: CLIPVariant, device: DeviceLike = None, dtype=torch.float32
+) -> CLIPText:
+    """The reference's CLIP params (``init_clip`` tree) -> the port's text
+    tower (``params["text"]``, blocks stacked on a leading layer axis)."""
+    text = dict(np_params["text"])
+    stacked = text.pop("blocks")
+    flat = flatten(text)
+    for i in range(variant.t_layers):
+        for name, arr in stacked.items():
+            flat[f"blocks.{i}.{name}"] = np.asarray(arr)[i]
+    return load_flat(CLIPText(variant, dtype=dtype, device=device), flat)
 
 
 def sam_from_jax(
@@ -135,4 +151,18 @@ def features_from_numpy(ff, device) -> FrameFeatures:
         boxes=_t(ff.boxes, f32, device),
         f_masks=_t(ff.f_masks, f32, device),
         f_global=_t(ff.f_global, f32, device),
+    )
+
+
+def mapped_from_numpy(ms, device) -> MappedScene:
+    """A reference MappedScene of numpy arrays (keyframes as they are) ->
+    the port's MappedScene."""
+    f32 = torch.float32
+    return MappedScene(
+        scene=scene_from_numpy(ms.scene, device),
+        instances=instances_from_numpy(ms.instances, device),
+        instance_feats=_t(ms.instance_feats, f32, device),
+        keyframes=[RGBDFrame(*f) for f in ms.keyframes],
+        keyframe_feats=_t(ms.keyframe_feats, f32, device),
+        density_keep=None if ms.density_keep is None else _t(ms.density_keep, torch.bool, device),
     )

@@ -2,8 +2,10 @@
 
 The PyTorch port's own copy of ``holoagent_tpu/config.py`` (the port imports
 nothing of the JAX package).  Field names and defaults are identical, so a
-dict that configures one configures the other.  The port builds a config
-with ``from_dict`` only: it has no file loader, and never imports PyYAML.
+dict that configures one configures the other.  ``load`` reads a JSON file,
+or a YAML file when PyYAML is installed (it is imported only there, and
+the card machine has none: build a config with ``from_dict`` there), then
+applies ``a.b.c=value`` overrides (``apply_override``).
 
 One dataclass tree spans pipeline thresholds, model choices and mesh/sharding
 config — the replacement for the reference's Hydra YAMLs
@@ -15,8 +17,10 @@ unchanged.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Tuple
 
 
 # ---------------------------------------------------------------------------
@@ -277,3 +281,35 @@ def _merge_into_dataclass(obj: Any, data: Dict[str, Any]) -> Any:
 
 def from_dict(data: Dict[str, Any], base: Optional[Config] = None) -> Config:
     return _merge_into_dataclass(base or Config(), data)
+
+
+def load(path: str | Path, overrides: Optional[List[str]] = None) -> Config:
+    """Load a YAML or JSON config file, then apply ``key.path=value``
+    overrides.  A YAML file needs PyYAML (ImportError without it)."""
+    path = Path(path)
+    text = path.read_text()
+    if path.suffix in (".yml", ".yaml"):
+        import yaml
+
+        data = yaml.safe_load(text) or {}
+    else:
+        data = json.loads(text)
+    cfg = from_dict(data)
+    for ov in overrides or []:
+        cfg = apply_override(cfg, ov)
+    return cfg
+
+
+def apply_override(cfg: Config, override: str) -> Config:
+    """Apply a single ``a.b.c=value`` override string (the value parsed as
+    JSON when it parses, else taken as a string)."""
+    key, _, raw = override.partition("=")
+    parts = key.strip().split(".")
+    try:
+        value = json.loads(raw)
+    except (json.JSONDecodeError, ValueError):
+        value = raw.strip()
+    nested: Dict[str, Any] = {parts[-1]: value}
+    for p in reversed(parts[:-1]):
+        nested = {p: nested}
+    return from_dict(nested, base=cfg)

@@ -40,6 +40,9 @@ class SceneState(NamedTuple):
     def points(self) -> torch.Tensor:
         return self.sum_pts / torch.clamp(self.count, min=1.0)[:, None]
 
+    def colors(self) -> torch.Tensor:
+        return self.sum_col / torch.clamp(self.count, min=1.0)[:, None]
+
     def feats(self, normalize: bool = True) -> torch.Tensor:
         f = self.sum_feat / torch.clamp(self.feat_count, min=1e-5)[:, None]
         if normalize:

@@ -53,8 +53,10 @@ def attention(
     impl: str = "xla",  # "flash": kernel K2 | "xla": its plain version
     causal: bool = False,
 ) -> torch.Tensor:
-    """Multi-head self-attention.  The reference's additive-mask argument
-    serves only its text tower, which is not ported yet."""
+    """Multi-head self-attention.  The reference's text tower passes an
+    additive causal mask to its dense attention; here that is
+    ``causal=True``, the same function (every row keeps its diagonal),
+    through K2's causal mode on a CUDA tensor."""
     return linear(_attend(linear(x, wqkv, bqkv), num_heads, impl, causal), wo, bo)
 
 

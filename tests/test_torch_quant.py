@@ -324,7 +324,7 @@ def test_build_key_tracks_the_k3_source():
 def test_load_models_builds_the_configured_towers(quant):
     cfg = from_dict({"models": {"clip": {"type": "test-tiny", "dtype": "float32", "quant": quant},
                                 "sam": {"type": "test-tiny", "dtype": "float32", "quant": quant}}})
-    clip, sam, cv, sv = load_models(cfg, device="cpu")
+    clip, sam, cv, sv, _ = load_models(cfg, device="cpu")
     assert (clip.quant, sam.quant) == (quant, quant) and cv.name == sv.name == "test-tiny"
     if quant:
         assert clip.blocks_q8[0].wqkv_q8.dtype == torch.int8 and sam.encoder.blocks[0].qkv.w_q8.dtype == torch.int8
