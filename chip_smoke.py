@@ -14,12 +14,16 @@ Phases (any failure exits non-zero, with no result line):
      the kernel's ratio to it.  K1/K2 (attention) are held to a limit set by
      each case's own output scale; K3 (W8A8 linear) to one ulp of its output
      dtype.  K1's cases take q, k, v as views of one (B, N, 3C) projection,
-     as SAM's _attention_2d splits it, and K2's CLIP cases as views of one
-     (B, T, 3W) projection, as the towers' _attend splits it; each prints
-     its kernel's plan (K1 global: the TMA + wgmma kernel; the windows and
-     K2: the resident kernel; blocks per SM, waves).  K2's text case is the
-     CLIP text tower's launch: 256 prompts, 12 heads, 77 tokens, causal,
-     through the streamed kernel;
+     as SAM's _attention_2d splits it, and K2's packed cases as views of one
+     (B, T, 3W) projection, as the towers' _attend splits it; each packed K2
+     case shows that the wrapper allocates nothing but its output (no copy
+     of q, k, v).  Each case prints its kernel's plan (N or T > T_MAX: the
+     TMA + wgmma global kernel; else the resident kernel; blocks per SM,
+     waves, and for K2's resident route what limits the blocks per SM).
+     K2's text case is the CLIP text tower's launch (256 prompts, 12 heads,
+     77 tokens, causal, the resident route); its prefill case a vlm-base
+     prefill layer (4 prompts, 16 heads, 1024 tokens, causal, the long
+     route);
   4. towers: at full width, hold the SAM and CLIP encoders through the
      kernels against the same encoders through the plain versions, in bf16
      and as W8A8 towers (CLIP in both qmm modes), and the CLIP ViT-L/14 text
@@ -71,7 +75,6 @@ from holoagent_tpu_torch.models import sam as sam_mod  # noqa: E402
 from holoagent_tpu_torch.models import transformer as tfm  # noqa: E402
 from holoagent_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from holoagent_tpu_torch.ops import quant_matmul as qm  # noqa: E402
-from holoagent_tpu_torch.ops._cuda_build import aligned_contiguous  # noqa: E402
 from holoagent_tpu_torch.perception.extractor import extract_frame_features_tiered  # noqa: E402
 from holoagent_tpu_torch.query import FSRQueryEngine  # noqa: E402
 from holoagent_tpu_torch.utils.labels import DEFAULT_ROOM_TYPES, SCANNET_LABELS_20  # noqa: E402
@@ -90,7 +93,9 @@ PEAK_BYTES = 3.35e12
 #   rms(out - ref) <= 2^-7 * rms(ref)        (one ulp, relative)
 # and the same test must reject the plain version with one key tile dropped
 # (and, for K1, with bias_h or bias_w dropped on one 64-query tile of one
-# head), so a kernel that skips a tile or part of the bias cannot pass.
+# head; for K2, with its key mask shifted by one: the causal diagonal, or
+# without causal the ragged key edge), so a kernel that skips a tile, part
+# of the bias or a key at the mask's edge cannot pass.
 MAX_ERR_OF_MAX = 2.0**-6
 REL_RMS_TOL = 2.0**-7
 # K3 vs plain version: the kernel does the plain version's arithmetic
@@ -251,7 +256,8 @@ def k1_case(name, b, heads, g, gen):
 def k2_case(name, b, h, t, causal, gen, packed=False):
     """One K2 shape.  packed: q, k, v are the (B, H, T, D) views of one
     (B, T, 3*H*D) projection that _attend makes (token stride 3*H*D, head
-    stride D), the layout the towers launch; else contiguous tensors."""
+    stride D), the layout the towers launch, and the call must allocate
+    nothing but its output; else contiguous tensors."""
     d = 64
     if packed:
         qkv = torch.randn(b, t, 3 * h * d, generator=gen).to("cuda", torch.bfloat16)
@@ -265,21 +271,38 @@ def k2_case(name, b, h, t, causal, gen, packed=False):
     mutants = [("the values of the first 64-key tile dropped", fa.flash_attention_ref(q, k, v_bad, causal=causal))]
     if causal:
         mutants.append(("the causal mask shifted by one (each query sees one future key)", causal_ref_shifted(q, k, v)))
+    else:
+        mutants.append(("the key mask shifted by one (key T - 1 dropped)", fa.flash_attention_ref(q, k[:, :, :-1],
+                                                                                                 v[:, :, :-1])))
     res = hold(name, out, ref, mutants)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    if not causal and t <= fa.T_MAX:
-        p = fa.resident_plan(b * h, t)
+    if packed:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        again = fa.flash_attention(q, k, v, causal=causal)
+        res["alloc_bytes"] = torch.cuda.memory_stats()["requested_bytes.all.peak"] - start
+        res["out_bytes"] = again.numel() * again.element_size()
+        del again
+        check(res["alloc_bytes"] == res["out_bytes"], f"{name}: the call allocated {res['alloc_bytes']} bytes at its "
+              f"peak, its output is {res['out_bytes']}: the wrapper copied q, k or v")
+    route = fa.k2_route(t, causal)
+    if route == "resident":
+        p = fa.resident_plan(b * h, t, causal=causal)
         grid = p["blocks_per_head"] * b * h
-        res["plan"] = dict(p, kernel="resident", grid=grid, waves=grid / (p["blocks_per_sm"] * p["sms"]))
+        regs, smem = p["blocks_by_regs"], p["blocks_by_smem"]
+        limit = "registers and shared memory alike" if regs == smem else "registers" if regs < smem else "shared memory"
+        res["plan"] = dict(p, kernel="resident", grid=grid, waves=grid / (p["blocks_per_sm"] * p["sms"]), limit=limit)
+    else:
+        p = fa.global_plan(b * h, t, rel_pos=False)
+        res["plan"] = dict(p, kernel="global (TMA + wgmma, no bias)", waves=p["grid"] / (p["blocks_per_sm"] * p["sms"]))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     res.update(
-        kernel="flash_attention", key=(b, h, t, causal), name=name,
+        kernel="flash_attention", key=(b, h, t, causal), name=name, route=route,
         shape=f"B={b} H={h} T={t} D={d} causal={causal} {'packed qkv' if packed else 'contiguous'} bf16",
         ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=causal)),
         plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v, causal=causal), samples=5, reps=2),
         library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=causal)),
     )
-    if (causal or t > fa.T_MAX) and packed:  # the streamed kernel: the wrapper copies the strided q, k, v
-        res["copy_ms"] = time_ms(lambda: [aligned_contiguous(x) for x in (q, k, v)])
     pairs = t * (t + 1) / 2 if causal else t * t  # key/query pairs this input needs
     res["bound_ms"], res["bound_by"] = bound(4.0 * pairs * d * b * h, 4 * b * h * t * d * 2, PEAK_BF16_FLOPS)
     res["ratio_to_library"] = res["ms"] / res["library_ms"]
@@ -389,24 +412,33 @@ def kernel_phases():
     ]
     for tier in (16, 32, 64):  # CLIP ViT-L/14 crop stack: B = 2*tier + 1
         cases.append(k2_case(f"k2_clip_tier{tier}", 2 * tier + 1, 16, 257, False, gen, packed=True))
-    cases.append(k2_case("k2_causal_t384", 4, 16, 384, True, gen))  # the streamed kernel
+    cases.append(k2_case("k2_causal_t384", 4, 16, 384, True, gen))  # the long route
     cases.append(k2_case("k2_t200", 4, 16, 200, False, gen))
     # the CLIP ViT-L/14 text tower: a padded batch of 256 prompts, 12 heads, 77 tokens, causal
     cases.append(k2_case("k2_text_causal_t77", 256, 12, 77, True, gen, packed=True))
+    # the resident route's causal limit: T = T_MAX, a head's tiles split over blocks
+    cases.append(k2_case("k2_causal_t320", 4, 16, 320, True, gen, packed=True))
+    # a vlm-base prefill layer (width 1024, 16 heads): the long route, causal
+    cases.append(k2_case("k2_prefill_causal_t1024", 4, 16, 1024, True, gen, packed=True))
+    cases.append(k2_case("k2_t600", 4, 16, 600, False, gen, packed=True))  # the long route, a ragged key tile
     for c in cases:
-        log(f"[kernel] {c['name']:18s} {c['shape']:49s} err {c['max_abs_err']:.3e} (tol {c['tol']:.3e}, "
+        log(f"[kernel] {c['name']:23s} {c['shape']:49s} err {c['max_abs_err']:.3e} (tol {c['tol']:.3e}, "
             f"max|ref| {c['ref_max']:.3e}, rms(ref) {c['ref_rms']:.3e}, rel rms err {c['rel_rms_err']:.3e} "
             f"tol {REL_RMS_TOL:.3e}) "
             f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  library {c['library_ms']:.4f} ms  "
             f"({c['ratio_to_library']:.2f}x)  bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
-        if "copy_ms" in c:
-            log(f"[kernel] {c['name']}: the streamed kernel's copies of the strided q, k, v: {c['copy_ms']:.4f} ms")
+        if "alloc_bytes" in c:
+            log(f"[kernel] {c['name']}: one call's peak allocation {c['alloc_bytes']} bytes = its output's "
+                f"{c['out_bytes']}: no copy of q, k, v")
         if "plan" in c:
             p = c["plan"]
             tiles = f"{p['tiles_per_block']} query tiles a block, " if "tiles_per_block" in p else ""
+            limit = (f"; {p['regs']} registers a thread, {p['smem']} bytes of shared memory a block: the registers "
+                     f"allow {p['blocks_by_regs']} blocks an SM, shared memory {p['blocks_by_smem']}, so "
+                     f"{p['limit']} set the limit" if "limit" in p else "")
             log(f"[kernel] {c['name']}: {p['kernel']} kernel, {tiles}"
                 f"{p['blocks_per_head']} blocks a head, {p['grid']} blocks, {p['blocks_per_sm']} blocks per SM "
-                f"on {p['sms']} SMs: {p['waves']:.2f} waves")
+                f"on {p['sms']} SMs: {p['waves']:.2f} waves{limit}")
     cases += k3_phase()
     return {c["name"]: c for c in cases}
 

@@ -5,77 +5,95 @@
 //     over an h x w token grid with the decomposed relative-position bias
 //       s[q, k] = q.k * d^-1/2 + bias_h[q, k / w] + bias_w[q, k % w]
 //   * K2  flash_attention (_flash_kernel): plain blockwise attention over
-//     (B, H, T, D), optionally causal, keys at or past t_valid masked.
-// Three kernels:
-//   - global_kernel (TMA + wgmma, warp-specialised): K1 for N > T_MAX, the
-//     SAM global layers (a 64 x 64 grid);
-//   - resident_kernel<REL_POS>: K1 for N <= T_MAX (the SAM windows, 14 x 14)
-//     with the bias on, and K2's non-causal T <= T_MAX (every CLIP ViT-L/14
-//     layer, T = 257) with it off;
-//   - flash_kernel (streamed): K2 when it is causal or T > T_MAX.
-// All three read q, k and v where they lie (resident and global kernels:
-// any batch, head and token strides that are multiples of 16 bytes, last dim
-// contiguous, such as the views of a fused qkv projection; the streamed
-// kernel: contiguous (BH, N, D)), keep every score in registers (no (N, N)
-// tensor in device memory) and mask the ragged key edge themselves.
+//     (B, H, T, D), optionally causal (key <= query: every row keeps its
+//     diagonal), keys at or past T masked.
+// Two kernels, instantiated per route:
+//   - global_kernel<REL_POS> (TMA + wgmma, warp-specialised): with the bias,
+//     K1 for N > T_MAX (the SAM global layers, a 64 x 64 grid); without it,
+//     K2 for T > T_MAX, causal or not (long prefills);
+//   - resident_kernel<REL_POS, CAUSAL>: K1 for N <= T_MAX (the SAM windows,
+//     14 x 14) with the bias on; K2 for T <= T_MAX with it off, non-causal
+//     (every CLIP ViT-L/14 visual layer, T = 257) or causal (the CLIP text
+//     tower, T = 77).  The bias and the causal mask never meet.
+// Both read q, k and v where they lie (any batch, head and token strides
+// that are multiples of 16 bytes, last dim contiguous, such as the views of
+// a fused qkv projection), write the output as (B, T, H, D), keep every
+// score in registers (no (T, T) tensor in device memory) and mask the
+// ragged key edge themselves.  No route copies its inputs or its output.
 //
-// What bounds it on the H100.  At the mapping pipeline's shapes (D = 64):
+// What bounds it on the H100.  At the port's shapes (D = 64):
 //   K1 global layers  BH=12,  N=4096: 51.5 GFLOP of tensor-core work against
 //                     ~50 MB of traffic -> compute-bound (~52 us at 989
 //                     TF/s); the softmax's 201 M exponentials take about as
 //                     long again on the SFUs (16 a clock per SM);
 //   K1 windows        BH=300, N=196:   ~3 GFLOP, ~37 MB  -> memory-bound;
 //   K2 CLIP crops     BH=16*(2*tier+1), T=257: 8.9 GFLOP against 69 MB at
-//                     tier 16 -> memory-bound (21 us at 3.35 TB/s).
+//                     tier 16 -> memory-bound (21 us at 3.35 TB/s);
+//   K2 text tower     BH=256*12, T=77, causal: 2.4 GFLOP of causal pairs
+//                     against 121 MB -> memory-bound (36 us);
+//   K2 long prefill   BH=4*16, T=1024, causal: 8.6 GFLOP against 34 MB ->
+//                     compute-bound on paper (9 us), latency-bound in fact:
+//                     512 blocks of 1-8 key tiles each.
 //
-// The global kernel (K1, N > T_MAX).  A block of three warpgroups owns 128
-// queries of one head: 32 blocks a head at N = 4096, one block an SM.
+// The global kernel (N > T_MAX).  A block of three warpgroups owns 128
+// queries of one head.
 //   - Warpgroup 0 is the producer: after `setmaxnreg` gives its registers to
 //     the consumers, one thread loads the block's Q tile once and then the
-//     head's K and V in 128-key tiles (two grid rows) into a ring of three
-//     stages, by TMA (cp.async.bulk.tensor, 4-D maps over (D, token, head,
-//     batch) at the caller's strides, 128-byte swizzle: a 64-wide bf16 row is
-//     one swizzle row), each stage guarded by a full and an empty mbarrier.
-//     TMA zero-fills rows past N.
-//   - Warpgroups 1 and 2 are the consumers, 64 queries (one grid row) each.
-//     Per key tile: S = Q K^T by wgmma m64n128k16 bf16 -> f32 with both
-//     operands in shared memory (K-major); the softmax in registers; then
-//     O += P V by wgmma m64n64k16 with P from registers (the S accumulator's
-//     layout is the A fragment's) and V from shared memory as stored,
-//     key-major with D contiguous, read through wgmma's transpose-B bit.
-//   - The bias without a division: a tile holds whole grid rows, so the key
-//     column kx of each accumulator slot is the same in every tile.  Each
+//     head's K and V in 128-key tiles into a ring of three stages, by TMA
+//     (cp.async.bulk.tensor, 4-D maps over (D, token, head, batch) at the
+//     caller's strides, 128-byte swizzle: a 64-wide bf16 row is one swizzle
+//     row), each stage guarded by a full and an empty mbarrier.  TMA
+//     zero-fills rows past N.
+//   - Warpgroups 1 and 2 are the consumers, 64 queries each.  Per key tile:
+//     S = Q K^T by wgmma m64n128k16 bf16 -> f32 with both operands in shared
+//     memory (K-major); the softmax in registers, in log2 units; then O += P V
+//     by wgmma m64n64k16 with P from registers (the S accumulator's layout is
+//     the A fragment's) and V from shared memory as stored, key-major with D
+//     contiguous, read through wgmma's transpose-B bit.
+//   - With the bias (K1) the key tile holds whole grid rows (64 wide), so the
+//     key column kx of each accumulator slot is the same in every tile.  Each
 //     thread loads bias_w[q, kx] for its two rows and its slots once (32
 //     floats, in log2 units) and keeps them for the whole key loop.
 //     bias_h[q, ky] is one value per row and grid row of the tile, loaded per
 //     tile; it folds into the row's shift.  Per score: one FFMA (scale and
-//     bias_w), one FMAX, one FADD (shift) and one ex2.approx.  The running
-//     max is that of the biased scores; a grid row past h (an odd h) gets
-//     bias_h = -1e30, which masks its keys.
-//   - It takes grids 64 wide only (every SAM variant at 1024 px: vit_b, l,
-//     h); the C entry returns cudaErrorInvalidValue, and the wrapper raises,
-//     for any other width with N > T_MAX.  No shape goes to the plain version.
+//     bias_w), one FMAX, one FADD (shift) and one ex2.approx.  A grid row past
+//     h (an odd h) gets bias_h = -1e30, which masks its keys.  It takes grids
+//     64 wide only (every SAM variant at 1024 px); the C entry returns
+//     cudaErrorInvalidValue, and the wrapper raises, for any other width.
+//   - Without it (K2) the running max is that of the raw scores and a
+//     probability is 2^(s * scale * log2(e) - max * scale * log2(e)): one FFMA
+//     and one ex2.approx a score.  Key tiles wholly inside every row's range
+//     run unmasked; only the tile with the ragged key edge, or with causal the
+//     diagonal tile (the last one the block loads: its key loop ends at the
+//     tile holding its last query), is masked per element.  Blocks are
+//     launched heaviest query tile first, so the longest causal rows do not
+//     trail the wave.
 //   - Each consumer waits for its S before the softmax and for its P V
 //     before the next tile; the other consumer's wgmma overlaps its softmax.
 //
-// The resident kernel (K1 and K2, N <= T_MAX).  One block (4 warps) owns one
-// head (or a share of its query tiles, where the grid would otherwise not
-// fill the card and the heads alone fill at most half a wave; see
-// resident_plan):
-//   - it stages the head's whole K and V (T16 x 64 bf16 each, T16 = T rounded
-//     up to 16; 33 KB each at T = 257) in shared memory once, with 16-byte
-//     cp.async in two commit groups, K then V, so QK^T starts while V lands;
-//     rows are 128 bytes with their 16-byte chunks XOR-swizzled by row % 8,
-//     and rows past T are zero-filled (a stale NaN in a padded V row would
-//     survive p = 0);
-//   - the output is written as (B, T, H, D), so the caller's transpose back
-//     to (B, T, H * D) is a view;
+// The resident kernel (N <= T_MAX).  One block (4 warps) owns one head, or a
+// share of its query tiles where the grid would otherwise not fill the card
+// and the heads alone fill at most half a wave (see resident_plan):
+//   - it stages the head's K and V (T16 x 64 bf16 each, T16 = T rounded up to
+//     16; 33 KB each at T = 257, 10 KB at T = 77) in shared memory once, with
+//     16-byte cp.async in two commit groups, K then V, so QK^T starts while V
+//     lands; rows are 128 bytes with their 16-byte chunks XOR-swizzled by
+//     row % 8, and rows past T are zero-filled (a stale NaN in a padded V row
+//     would survive p = 0);
 //   - each warp walks m16 query tiles, its Q fragments loaded straight from
 //     device memory into registers (the next tile's while this tile's output
 //     is stored), and runs the online softmax over the resident keys in
 //     64-key chunks (mma.sync m16n8k16) with no barrier between chunks and no
-//     branch inside one, the tail masked at 16-key granularity; K's B
-//     fragments come from ldmatrix, V's from ldmatrix.trans;
+//     branch inside one; K's B fragments come from ldmatrix, V's from
+//     ldmatrix.trans.  Only the last chunk a tile reads is masked per element
+//     (keys past each row's last visible key: T - 1, or with causal the row
+//     itself), at 16-key granularity;
+//   - causal: a tile at rows [r0, r0 + 16) runs the chunks wholly below r0
+//     unmasked, masks the chunk that holds the diagonal, and skips the keys
+//     past r0 + 15.  The work grows with the tile, so a block's tiles are
+//     dealt to its warps heaviest first in snake order, and a head's tiles to
+//     its blocks in the same way; a block stages only the keys its heaviest
+//     tile can see;
 //   - without the bias the softmax keeps the running max of the raw scores
 //     and forms each probability as 2^(s * scale * log2(e) - max * scale *
 //     log2(e)): one FFMA and one ex2.approx a score;
@@ -88,12 +106,9 @@
 //     and the softmax then takes it to log2 units in its FFMA.  It takes
 //     grids with h + w <= RES_HW_MAX.
 // About 70 KB of shared memory at T = 257 (68 KB at the windows' T = 196,
-// the bias included) lets three blocks share an SM.
-//
-// The streamed kernel (K2, causal or T > T_MAX).  One block (4 warps) owns
-// one (batch*head, 64-query tile) and walks 64-key tiles: K row-major and V
-// transposed in shared memory, mma.sync for both products, causal blocks
-// stopping at the diagonal.
+// the bias included) lets three blocks share an SM; at T = 77 (20 KB) the
+// registers set the limit, and the causal instantiation is built for four
+// blocks an SM (at most 128 registers a thread).
 //
 // Left for later: a persistent tile loop and intra-warpgroup overlap of the
 // next tile's QK^T with this tile's softmax in the global kernel; wgmma in
@@ -111,11 +126,6 @@
 
 namespace {
 
-constexpr int BLOCK_Q = 64;
-constexpr int BLOCK_K = 64;
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int VEC = 8;  // bf16 elements per 16-byte load
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.44269504088896341f;  // scores in log2 units: exp(x) = exp2(x * log2(e))
 constexpr int ROW_BYTES = 128;                 // one 64-wide bf16 row of Q, K or V
@@ -155,198 +165,6 @@ struct Strides {
 };
 
 // ---------------------------------------------------------------------------
-// The streamed kernel: K2, causal or T > T_MAX
-// ---------------------------------------------------------------------------
-
-template <int D>
-struct Smem {
-  static constexpr int LD = D + 8;         // padded row of the Q and K tiles
-  static constexpr int LDV = BLOCK_K + 8;  // padded row of the transposed V tile
-  static constexpr int TILE_BYTES = (BLOCK_Q * LD + BLOCK_K * LD + D * LDV) * 2;
-};
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int n, int causal,
-             int n_valid, float scale) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int LD = Smem<D>::LD;
-  constexpr int LDV = Smem<D>::LDV;
-  constexpr int ROW_VECS = D / VEC;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // BLOCK_Q x LD
-  __nv_bfloat16* ks = qs + BLOCK_Q * LD;                           // BLOCK_K x LD
-  __nv_bfloat16* vt = ks + BLOCK_K * LD;                           // D x LDV
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // row within the mma fragment
-  const int tg = lane & 3;  // column pair within the mma fragment
-  const int head = blockIdx.y;
-  const int q0 = blockIdx.x * BLOCK_Q;
-  const size_t head_off = static_cast<size_t>(head) * n * D;
-  q += head_off;
-  k += head_off;
-  v += head_off;
-  o += head_off;
-
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = tid; i < BLOCK_Q * ROW_VECS; i += THREADS) {
-    const int r = i / ROW_VECS, c = (i % ROW_VECS) * VEC;
-    uint4 val = zero;
-    if (q0 + r < n) val = *reinterpret_cast<const uint4*>(q + static_cast<size_t>(q0 + r) * D + c);
-    *reinterpret_cast<uint4*>(qs + r * LD + c) = val;
-  }
-  __syncthreads();
-
-  // this warp's 16 query rows as mma A fragments, kept in registers
-  const int row0 = warp * 16 + g;  // local rows row0 and row0 + 8
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* base = qs + kk * 16 + tg * 2;
-    qa[kk][0] = ld32(base + row0 * LD);
-    qa[kk][1] = ld32(base + (row0 + 8) * LD);
-    qa[kk][2] = ld32(base + row0 * LD + 8);
-    qa[kk][3] = ld32(base + (row0 + 8) * LD + 8);
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m_run[2] = {NEG_INF, NEG_INF};
-  float l_run[2] = {0.f, 0.f};  // per-thread partial sums, reduced at the end
-  const int q_glob[2] = {q0 + row0, q0 + row0 + 8};
-
-  int num_kt = (n + BLOCK_K - 1) / BLOCK_K;
-  if (causal) num_kt = min(num_kt, (q0 + BLOCK_Q + BLOCK_K - 1) / BLOCK_K);
-
-  for (int kt = 0; kt < num_kt; ++kt) {
-    const int k0 = kt * BLOCK_K;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    for (int i = tid; i < BLOCK_K * ROW_VECS; i += THREADS) {
-      const int r = i / ROW_VECS, c = (i % ROW_VECS) * VEC;
-      uint4 kv = zero, vv = zero;
-      if (k0 + r < n) {
-        const size_t off = static_cast<size_t>(k0 + r) * D + c;
-        kv = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(ks + r * LD + c) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) vt[(c + e) * LDV + r] = ve[e];
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[BLOCK_K / 8][4];
-#pragma unroll
-    for (int j = 0; j < BLOCK_K / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* kb = ks + (j * 8 + g) * LD + tg * 2;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        mma_16816(s[j], qa[kk], ld32(kb + kk * 16), ld32(kb + kk * 16 + 8));
-    }
-
-    // scale, masks, running max
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int j = 0; j < BLOCK_K / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int key = k0 + j * 8 + tg * 2 + (e & 1);
-        bool ok = key < n_valid;
-        if (causal) ok = ok && key <= q_glob[r];
-        const float x = ok ? s[j][e] * scale : NEG_INF;
-        s[j][e] = x;
-        mx[r] = fmaxf(mx[r], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = __expf(m_run[r] - mx[r]);
-      m_run[r] = mx[r];
-      l_run[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int j = 0; j < BLOCK_K / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(s[j][e] - mx[e >> 1]);
-        s[j][e] = p;
-        l_run[e >> 1] += p;
-      }
-    }
-
-    // acc += P V: two adjacent S fragments form one A fragment (k-step of 16 keys)
-#pragma unroll
-    for (int kk = 0; kk < BLOCK_K / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const __nv_bfloat16* vb = vt + (j * 8 + g) * LDV + kk * 16 + tg * 2;
-        mma_16816(acc[j], pa, ld32(vb), ld32(vb + 8));
-      }
-    }
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_run[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[r] = 1.f / fmaxf(l, 1e-30f);
-  }
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = j * 8 + tg * 2;
-    if (q_glob[0] < n)
-      *reinterpret_cast<uint32_t*>(o + static_cast<size_t>(q_glob[0]) * D + col) =
-          pack_bf16x2(acc[j][0] * inv[0], acc[j][1] * inv[0]);
-    if (q_glob[1] < n)
-      *reinterpret_cast<uint32_t*>(o + static_cast<size_t>(q_glob[1]) * D + col) =
-          pack_bf16x2(acc[j][2] * inv[1], acc[j][3] * inv[1]);
-  }
-}
-
-// Head dim 64 only: the dim of every attention layer on the ported path.
-int launch_streamed(const void* q, const void* k, const void* v, void* o, int bh, int n, int causal,
-                    int n_valid, float scale, cudaStream_t stream) {
-  constexpr int D = 64;
-  constexpr size_t smem = Smem<D>::TILE_BYTES;
-  auto kernel = flash_kernel<D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((n + BLOCK_Q - 1) / BLOCK_Q, bh);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), n, causal, n_valid, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
 // The resident kernel: K1 and K2, N <= T_MAX
 // ---------------------------------------------------------------------------
 
@@ -354,6 +172,11 @@ constexpr int T_MAX = 320;  // longest N the resident kernel takes (80 KB of K a
 constexpr int RES_WARPS = 4;
 constexpr int RES_THREADS = RES_WARPS * 32;
 constexpr int RES_MIN_BLOCKS = 3;  // blocks an SM must hold: at most 168 registers a thread
+// The causal instantiation (the text tower, T = 77: 20 KB of shared memory a
+// block) must hold 4: at most 128 registers a thread, which spills 32 bytes
+// and still runs the text launch about 6% faster than at 3.  Where shared
+// memory allows fewer blocks anyway (T above 224) it only costs registers.
+constexpr int RES_MIN_BLOCKS_CAUSAL = 4;
 constexpr int CHUNK = 4;           // 16-key groups per step of the online softmax
 constexpr int RES_HW_MAX = 128;    // largest grid_h + grid_w the resident kernel takes with the bias; ops/flash_attention.py has a copy
 
@@ -431,14 +254,17 @@ struct Rows {
 // One chunk of G 16-key groups from key0 against the resident K and V:
 // S = Q K^T (mma.sync m16n8k16, K's B fragments by ldmatrix), the online
 // softmax in log2 units, acc += P V (V's B fragments by ldmatrix.trans).
-// MASK: the chunk holds the key tail, and keys at or past t are masked.
+// MASK: the chunk holds the last key some row may see.  Without CAUSAL the
+// keys at or past `edge` (T) are masked; with it each of this thread's two
+// rows masks the keys past itself (`edge` is its first row, the second is
+// edge + 8).
 // `scale`: d^-1/2 * log2(e) without the bias.  REL_POS: `scale` is d^-1/2,
 // each score becomes s * scale + bias_h[ky] + bias_w[kx], with (ky, kx) from
 // the key table `tab` and the rows from `br`, and the max is that of the
 // biased scores.
 // No branch inside, so the compiler interleaves the groups' MMAs.
-template <int G, bool MASK, bool REL_POS>
-__device__ __forceinline__ void attend_chunk(Rows& st, uint32_t ks, uint32_t vs, int key0, int t, float scale,
+template <int G, bool MASK, bool REL_POS, bool CAUSAL>
+__device__ __forceinline__ void attend_chunk(Rows& st, uint32_t ks, uint32_t vs, int key0, int edge, float scale,
                                              bool& v_ready, const uint32_t* tab, const BiasRows& br) {
   constexpr int D = 64;
   const int lane = threadIdx.x & 31;
@@ -480,7 +306,8 @@ __device__ __forceinline__ void attend_chunk(Rows& st, uint32_t ks, uint32_t vs,
   for (int j = 0; j < 2 * G; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      if (MASK && key0 + j * 8 + tg * 2 + (e & 1) >= t) s[j][e] = NEG_INF;
+      const int key = key0 + j * 8 + tg * 2 + (e & 1);
+      if (MASK && (CAUSAL ? key > edge + 8 * (e >> 1) : key >= edge)) s[j][e] = NEG_INF;
       mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
     }
   }
@@ -541,34 +368,47 @@ __host__ __device__ constexpr size_t resident_smem(int t, int hw) {
 }
 
 // q, k, v (B, H, T, 64) bf16 at the given strides; o (B, T, H, 64) bf16,
-// contiguous.  Block (x, y): head y = b * H + h, query tiles
-// [x * tiles_per_block, (x + 1) * tiles_per_block) of 16 rows, one warp each
-// in turn.
-template <bool REL_POS>
-__global__ void __launch_bounds__(RES_THREADS, RES_MIN_BLOCKS)
+// contiguous.  Block (x, y): head y = b * H + h and its x-th share of the
+// head's query tiles of 16 rows, which its warps take in turn.
+template <bool REL_POS, bool CAUSAL>
+__global__ void __launch_bounds__(RES_THREADS, CAUSAL ? RES_MIN_BLOCKS_CAUSAL : RES_MIN_BLOCKS)
 resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, Strides sq, Strides sk,
                 Strides sv, int heads, int t, int tiles_per_block, float scale, RelPos rp) {
+  static_assert(!(REL_POS && CAUSAL), "the bias and the causal mask never meet");
   constexpr int D = 64;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int t16 = (t + 15) & ~15;
+  const int n16 = t16 / 16;
   unsigned char* ks_ptr = smem_raw;
   unsigned char* vs_ptr = smem_raw + t16 * ROW_BYTES;
   const uint32_t ks = smem_u32(ks_ptr), vs = smem_u32(vs_ptr);
 
+  // Causal: the block's j-th query tile, or -1 past its last: the head's
+  // tiles heaviest (last) first, dealt to its blocks in snake order, so each
+  // block gets an equal share of the triangle and its own tiles come
+  // heaviest first.  A block then stages only the keys its heaviest tile
+  // sees.  (Without causal a block owns the run of tiles_per_block tiles
+  // from x * tiles_per_block.)
+  const int splits = gridDim.x, x = blockIdx.x;
+  auto causal_tile = [&](int j) -> int {
+    const int rank = j * splits + ((j & 1) ? splits - 1 - x : x);
+    return rank < n16 ? n16 - 1 - rank : -1;
+  };
+  const int t16_staged = CAUSAL ? (causal_tile(0) + 1) * 16 : t16;
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
   q += b * sq.b + h * sq.h;
   k += b * sk.b + h * sk.h;
   v += b * sv.b + h * sv.h;
-  stage_panel(ks, ks_ptr, k, sk.t, t, t16);  // commit group 0: K
-  stage_panel(vs, vs_ptr, v, sv.t, t, t16);  // commit group 1: V
+  const int t_staged = CAUSAL ? min(t, t16_staged) : t;
+  stage_panel(ks, ks_ptr, k, sk.t, t_staged, t16_staged);  // commit group 0: K
+  stage_panel(vs, vs_ptr, v, sv.t, t_staged, t16_staged);  // commit group 1: V
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;  // row within the mma fragment
   const int tg = lane & 3;  // column pair within the mma fragment
-  const int n16 = t16 / 16;
-  const int tile_end = min(n16, (blockIdx.x + 1) * tiles_per_block);
+  const int tile_end = min(n16, (x + 1) * tiles_per_block);  // without causal
   const int full_chunks = t / (16 * CHUNK);  // chunks with no key at or past t
   const int tail = n16 - CHUNK * full_chunks;  // 16-key groups left, 0 to CHUNK, masked
 
@@ -615,17 +455,29 @@ resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
       cp_async4(smem_u32(dst + 16 * rp.grid_h + i), src_w + min(i, nw - 1), i < nw);
     cp_async_commit();
   };
+  // next_tile(it, tile): the tile this warp takes after its it-th, `tile`,
+  // or -1 past the block's last.  The warps take the block's tiles in turn,
+  // with causal in snake order (0 1 2 3 3 2 1 0 ...), heaviest first.
+  auto snake = [&](int it) { return causal_tile(it * RES_WARPS + ((it & 1) ? RES_WARPS - 1 - warp : warp)); };
+  auto next_tile = [&](int it, int tile) -> int {
+    if constexpr (CAUSAL)
+      return snake(it + 1);
+    else
+      return tile + RES_WARPS < tile_end ? tile + RES_WARPS : -1;
+  };
   Rows st;
   BiasRows br{};
-  int tile = blockIdx.x * tiles_per_block + warp;
-  if (REL_POS && tile < tile_end) load_bias(tile, 0);
-  if (tile < tile_end) load_q(st.qa, tile);
-  for (int it = 0; tile < tile_end; tile += RES_WARPS, ++it) {
+  int tile = CAUSAL ? snake(0) : x * tiles_per_block + warp;
+  if (!CAUSAL && tile >= tile_end) tile = -1;
+  if (REL_POS && tile >= 0) load_bias(tile, 0);
+  if (tile >= 0) load_q(st.qa, tile);
+  for (int it = 0; tile >= 0; ++it) {
+    const int next = next_tile(it, tile);
     const int r0 = tile * 16 + g;  // this thread's rows r0 and r0 + 8
     if constexpr (REL_POS) {
       __syncwarp();  // every lane is done with the slice the next tile's rows go to
-      if (tile + RES_WARPS < tile_end)
-        load_bias(tile + RES_WARPS, (it + 1) & 1);
+      if (next >= 0)
+        load_bias(next, (it + 1) & 1);
       else
         cp_async_commit();  // an empty group: this tile's rows are always the second newest
       cp_async_wait<1>();
@@ -639,19 +491,26 @@ resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     st.m[0] = st.m[1] = NEG_INF;
     st.l[0] = st.l[1] = 0.f;  // per-thread partial sums, reduced at the end
 
-    for (int c = 0; c < full_chunks; ++c)
-      attend_chunk<CHUNK, false, REL_POS>(st, ks, vs, c * 16 * CHUNK, t, scale, v_ready, tab, br);
-    const int key0 = full_chunks * 16 * CHUNK;
-    switch (tail) {  // cases above CHUNK never occur
-      case 4: attend_chunk<4, true, REL_POS>(st, ks, vs, key0, t, scale, v_ready, tab, br); break;
-      case 3: attend_chunk<3, true, REL_POS>(st, ks, vs, key0, t, scale, v_ready, tab, br); break;
-      case 2: attend_chunk<2, true, REL_POS>(st, ks, vs, key0, t, scale, v_ready, tab, br); break;
-      case 1: attend_chunk<1, true, REL_POS>(st, ks, vs, key0, t, scale, v_ready, tab, br); break;
+    // The unmasked chunks, then the masked groups: without causal those that
+    // hold keys at or past t; with it the chunks wholly below row tile * 16,
+    // then the groups up to and including the diagonal, each row masking the
+    // keys past itself, and no key past the tile's last row.
+    const int below = CAUSAL ? tile / CHUNK : full_chunks;
+    const int groups = CAUSAL ? tile % CHUNK + 1 : tail;
+    const int edge = CAUSAL ? r0 : t;
+    for (int c = 0; c < below; ++c)
+      attend_chunk<CHUNK, false, REL_POS, CAUSAL>(st, ks, vs, c * 16 * CHUNK, edge, scale, v_ready, tab, br);
+    const int key0 = below * 16 * CHUNK;
+    switch (groups) {  // cases above CHUNK never occur
+      case 4: attend_chunk<4, true, REL_POS, CAUSAL>(st, ks, vs, key0, edge, scale, v_ready, tab, br); break;
+      case 3: attend_chunk<3, true, REL_POS, CAUSAL>(st, ks, vs, key0, edge, scale, v_ready, tab, br); break;
+      case 2: attend_chunk<2, true, REL_POS, CAUSAL>(st, ks, vs, key0, edge, scale, v_ready, tab, br); break;
+      case 1: attend_chunk<1, true, REL_POS, CAUSAL>(st, ks, vs, key0, edge, scale, v_ready, tab, br); break;
       default: break;
     }
 
     // the next tile's Q is in flight while this tile's output is stored
-    if (tile + RES_WARPS < tile_end) load_q(st.qa, tile + RES_WARPS);
+    if (next >= 0) load_q(st.qa, next);
     float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -670,6 +529,7 @@ resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
       if (r0 + 8 < t)
         *reinterpret_cast<uint32_t*>(o1 + col) = pack_bf16x2(st.acc[j][2] * inv[1], st.acc[j][3] * inv[1]);
     }
+    tile = next;
   }
   if (!v_ready) wait_for_v();  // a warp with no query tile still takes its part in the barrier
 }
@@ -682,7 +542,7 @@ struct Plan {
 };
 
 // hw: grid_h + grid_w with the bias (REL_POS), else 0.
-template <bool REL_POS>
+template <bool REL_POS, bool CAUSAL>
 cudaError_t resident_plan(int bh, int t, int hw, Plan* plan) {
   plan->smem = resident_smem(t, REL_POS ? hw : 0);
   // per device: the shared-memory allowance (set once, for the largest
@@ -690,7 +550,7 @@ cudaError_t resident_plan(int bh, int t, int hw, Plan* plan) {
   // queries after the first at its size
   static std::mutex mu;
   static std::map<std::pair<int, size_t>, int> blocks_per_sm;
-  auto kernel = resident_kernel<REL_POS>;
+  auto kernel = resident_kernel<REL_POS, CAUSAL>;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -730,25 +590,50 @@ cudaError_t resident_plan(int bh, int t, int hw, Plan* plan) {
   return cudaSuccess;
 }
 
-template <bool REL_POS>
+template <bool REL_POS, bool CAUSAL>
 int launch_resident(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk, Strides sv,
                     int b, int h, int t, float scale, RelPos rp, cudaStream_t stream) {
   Plan plan;
-  cudaError_t err = resident_plan<REL_POS>(b * h, t, rp.grid_h + rp.grid_w, &plan);
+  cudaError_t err = resident_plan<REL_POS, CAUSAL>(b * h, t, rp.grid_h + rp.grid_w, &plan);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(plan.splits, b * h);
-  resident_kernel<REL_POS><<<grid, RES_THREADS, plan.smem, stream>>>(
+  resident_kernel<REL_POS, CAUSAL><<<grid, RES_THREADS, plan.smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq, sk, sv, h, t,
       plan.tiles_per_block, REL_POS ? scale : scale * LOG2E, rp);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The plan of resident_kernel<REL_POS, CAUSAL> into out[0..7]: query tiles
+// per block, blocks per head, blocks per SM, SMs, registers a thread, shared
+// memory a block (bytes), and the blocks per SM that its registers alone and
+// its shared memory alone allow (the latter from the device's shared memory
+// per SM and what it reserves for each block).
+template <bool REL_POS, bool CAUSAL>
+cudaError_t resident_report(int bh, int t, int hw, int* out) {
+  Plan plan;
+  cudaFuncAttributes attr;
+  int by_regs = 0, dev = 0, smem_per_sm = 0, reserved = 0;
+  cudaError_t err = resident_plan<REL_POS, CAUSAL>(bh, t, hw, &plan);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, resident_kernel<REL_POS, CAUSAL>);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&by_regs, resident_kernel<REL_POS, CAUSAL>, RES_THREADS, 0);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&smem_per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (err != cudaSuccess) return err;
+  const int by_smem = smem_per_sm / (static_cast<int>(plan.smem) + reserved);
+  const int report[8] = {plan.tiles_per_block, plan.splits, plan.blocks_per_sm, plan.sms, attr.numRegs,
+                         static_cast<int>(plan.smem), by_regs, by_smem};
+  for (int i = 0; i < 8; ++i) out[i] = report[i];
+  return cudaSuccess;
+}
+
 // ---------------------------------------------------------------------------
-// The global kernel: K1, N > T_MAX, TMA + wgmma
+// The global kernel: N > T_MAX, TMA + wgmma (K1 with the bias, K2 without)
 // ---------------------------------------------------------------------------
 
-constexpr int G_W = 64;        // the grid width it takes: a 128-key tile is two grid rows
+constexpr int G_W = 64;        // the grid width K1 takes: a 128-key tile is two grid rows
 constexpr int G_BQ = 128;      // queries a block: two consumer warpgroups of 64
 constexpr int G_BK = 128;      // keys a tile
 constexpr int G_STAGES = 3;    // K/V ring
@@ -868,23 +753,30 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// q, k, v through their tensor maps; bias_h (bh, n, grid_h), bias_w (bh, n,
-// 64) f32, contiguous; o (B, N, H, 64) bf16, contiguous.  Block (x, y):
-// head y = b * H + h, queries [128 x, 128 x + 128).
+// q, k, v through their tensor maps; o (B, N, H, 64) bf16, contiguous.
+// REL_POS (K1): bias_h (bh, n, grid_h), bias_w (bh, n, 64) f32, contiguous;
+// block (x, y) is head y = b * H + h, queries [128 x, 128 x + 128).  Without
+// (K2): `causal` masks key > query; block (x, y) is head x and the query
+// tile gridDim.y - 1 - y, so the heaviest causal tiles of every head launch
+// first.
+template <bool REL_POS>
 __global__ void __launch_bounds__(G_THREADS, 1)
 global_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
               const __grid_constant__ CUtensorMap map_v, const float* __restrict__ bias_h,
               const float* __restrict__ bias_w, __nv_bfloat16* __restrict__ o, int heads, int n, int grid_h,
-              float scale_log2) {
+              int causal, float scale_log2) {
   __shared__ __align__(8) uint64_t q_bar, full_bar[G_STAGES], empty_bar[G_STAGES];
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const uint32_t q_tile = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the 128-byte swizzle wants 1 KB
-  const uint32_t ring = q_tile + G_Q_BYTES;
+  const uint32_t q_smem = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the 128-byte swizzle wants 1 KB
+  const uint32_t ring = q_smem + G_Q_BYTES;
 
   const int warpgroup = threadIdx.x / 128;
-  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
-  const int q0 = blockIdx.x * G_BQ;
-  const int num_kt = (n + G_BK - 1) / G_BK;
+  const int bh = REL_POS ? blockIdx.y : blockIdx.x, b = bh / heads, h = bh % heads;
+  const int q_tile = REL_POS ? blockIdx.x : gridDim.y - 1 - blockIdx.y;
+  const int q0 = q_tile * G_BQ;
+  // with causal the key loop ends at the tile holding the block's last query
+  // (G_BQ == G_BK: the tile q_tile)
+  const int num_kt = !REL_POS && causal ? q_tile + 1 : (n + G_BK - 1) / G_BK;
 
   if (threadIdx.x == 0) {
     mbar_init(smem_u32(&q_bar), 1);
@@ -901,7 +793,7 @@ global_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(smem_u32(&q_bar), G_Q_BYTES);
-      tma_load(q_tile, &map_q, smem_u32(&q_bar), q0, h, b);
+      tma_load(q_smem, &map_q, smem_u32(&q_bar), q0, h, b);
       for (int kt = 0; kt < num_kt; ++kt) {
         const int s = kt % G_STAGES;
         if (kt >= G_STAGES) mbar_wait(smem_u32(&empty_bar[s]), ((kt / G_STAGES) - 1) & 1);
@@ -926,15 +818,24 @@ global_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
     // bias_w of this thread's two rows and its key columns kx = 8 jj + 2 tg + e,
     // in log2 units: the same columns in every tile
     float bw[2][8][2];
+    const float* bh_row[2] = {nullptr, nullptr};
+    if constexpr (REL_POS) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
+      for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const float2 w2 = *reinterpret_cast<const float2*>(bias_w + brow[r] * G_W + jj * 8 + tg * 2);
-        bw[r][jj][0] = w2.x * LOG2E;
-        bw[r][jj][1] = w2.y * LOG2E;
-      }
-    const float* bh_row[2] = {bias_h + brow[0] * grid_h, bias_h + brow[1] * grid_h};
+        for (int jj = 0; jj < 8; ++jj) {
+          const float2 w2 = *reinterpret_cast<const float2*>(bias_w + brow[r] * G_W + jj * 8 + tg * 2);
+          bw[r][jj][0] = w2.x * LOG2E;
+          bw[r][jj][1] = w2.y * LOG2E;
+        }
+      bh_row[0] = bias_h + brow[0] * grid_h;
+      bh_row[1] = bias_h + brow[1] * grid_h;
+    }
+    // without the bias: the last key each of this thread's rows sees, and
+    // the first tile that passes it for some row of this warpgroup (from
+    // there on the scores are masked per element)
+    const int last[2] = {causal ? min(row[0], n - 1) : n - 1, causal ? min(row[1], n - 1) : n - 1};
+    const int first_masked = ((causal ? min(q0 + c * 64, n - 1) : n - 1) + 1) / G_BK;
 
     float acc[32], sacc[64];
 #pragma unroll
@@ -942,7 +843,7 @@ global_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
 #pragma unroll
     for (int i = 0; i < 64; ++i) sacc[i] = 0.f;
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // l: per-thread partial sums
-    const uint32_t q_sub = q_tile + c * 64 * ROW_BYTES;
+    const uint32_t q_sub = q_smem + c * 64 * ROW_BYTES;
     mbar_wait(smem_u32(&q_bar), 0);
 
     for (int kt = 0; kt < num_kt; ++kt) {
@@ -951,13 +852,15 @@ global_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
       // bias_h of the tile's two grid rows, issued before the wait; a grid
       // row past grid_h masks its keys
       float bhv[2][2];
+      if constexpr (REL_POS) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
+        for (int r = 0; r < 2; ++r)
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int ky = kt * 2 + half;
-          bhv[r][half] = ky < grid_h ? bh_row[r][ky] * LOG2E : NEG_INF;
-        }
+          for (int half = 0; half < 2; ++half) {
+            const int ky = kt * 2 + half;
+            bhv[r][half] = ky < grid_h ? bh_row[r][ky] * LOG2E : NEG_INF;
+          }
+      }
 
       mbar_wait(smem_u32(&full_bar[s]), (kt / G_STAGES) & 1);
       wgmma_fence();
@@ -967,28 +870,54 @@ global_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
       wgmma_wait<0>();
       fence_regs(sacc);
 
-      // x = s * scale * log2(e) + bias_w; the max over each grid row's half
-      // of the tile, then bias_h per half
-      float mg[2][2] = {{NEG_INF, NEG_INF}, {NEG_INF, NEG_INF}};
+      float alpha[2], shift[2][2];  // a row's shift for each half of the tile (a grid row with the bias)
+      if constexpr (REL_POS) {
+        // x = s * scale * log2(e) + bias_w; the max over each grid row's half
+        // of the tile, then bias_h per half
+        float mg[2][2] = {{NEG_INF, NEG_INF}, {NEG_INF, NEG_INF}};
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+        for (int j = 0; j < 16; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = fmaf(sacc[4 * j + e], scale_log2, bw[e >> 1][j % 8][e & 1]);
-          sacc[4 * j + e] = x;
-          mg[e >> 1][j / 8] = fmaxf(mg[e >> 1][j / 8], x);
+          for (int e = 0; e < 4; ++e) {
+            const float x = fmaf(sacc[4 * j + e], scale_log2, bw[e >> 1][j % 8][e & 1]);
+            sacc[4 * j + e] = x;
+            mg[e >> 1][j / 8] = fmaxf(mg[e >> 1][j / 8], x);
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = fmaxf(m[r], fmaxf(mg[r][0] + bhv[r][0], mg[r][1] + bhv[r][1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          alpha[r] = ex2(m[r] - mx);
+          m[r] = mx;
+          l[r] *= alpha[r];
+          shift[r][0] = bhv[r][0] - mx;
+          shift[r][1] = bhv[r][1] - mx;
         }
-      float alpha[2], shift[2][2];
+      } else {
+        // the running max of the raw scores; keys past a row's last masked
+        // in the tiles that hold them
+        if (kt >= first_masked) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = fmaxf(m[r], fmaxf(mg[r][0] + bhv[r][0], mg[r][1] + bhv[r][1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        alpha[r] = ex2(m[r] - mx);
-        m[r] = mx;
-        l[r] *= alpha[r];
-        shift[r][0] = bhv[r][0] - mx;
-        shift[r][1] = bhv[r][1] - mx;
+          for (int j = 0; j < 16; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (kt * G_BK + j * 8 + tg * 2 + (e & 1) > last[e >> 1]) sacc[4 * j + e] = NEG_INF;
+        }
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sacc[4 * j + e]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          alpha[r] = ex2((m[r] - mx[r]) * scale_log2);
+          m[r] = mx[r];
+          l[r] *= alpha[r];
+          shift[r][0] = shift[r][1] = -mx[r] * scale_log2;
+        }
       }
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -997,11 +926,14 @@ global_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
         acc[4 * j + 2] *= alpha[1];
         acc[4 * j + 3] *= alpha[1];
       }
+      // p = 2^(x + shift): with the bias x is already in log2 units (an FMA
+      // by 1 is an add); without, x = s * scale * log2(e), one FFMA
+      const float sc = REL_POS ? 1.f : scale_log2;
 #pragma unroll
       for (int j = 0; j < 16; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float p = ex2(sacc[4 * j + e] + shift[e >> 1][j / 8]);
+          const float p = ex2(fmaf(sacc[4 * j + e], sc, shift[e >> 1][j / 8]));
           sacc[4 * j + e] = p;
           l[e >> 1] += p;
         }
@@ -1079,31 +1011,34 @@ cudaError_t make_map(CUtensorMap* map, const void* base, Strides s, int batch, i
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The shared-memory allowance of global_kernel, set once per device.
+// The shared-memory allowance of global_kernel<REL_POS>, set once per device.
+template <bool REL_POS>
 cudaError_t global_smem_allowance() {
   static std::atomic<unsigned> smem_set{0};  // devices it may use its shared memory on
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && (dev >= 32 || !(smem_set.load() >> dev & 1u))) {
-    err = cudaFuncSetAttribute(global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
+    err = cudaFuncSetAttribute(global_kernel<REL_POS>, cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
     if (err == cudaSuccess && dev < 32) smem_set.fetch_or(1u << dev);
   }
   return err;
 }
 
+template <bool REL_POS>
 int launch_global(const void* q, const void* k, const void* v, const void* bias_h, const void* bias_w, void* o,
-                  Strides sq, Strides sk, Strides sv, int b, int h, int n, int grid_h, float scale,
+                  Strides sq, Strides sk, Strides sv, int b, int h, int n, int grid_h, int causal, float scale,
                   cudaStream_t stream) {
   CUtensorMap map_q, map_k, map_v;
   cudaError_t err = make_map(&map_q, q, sq, b, h, n);
   if (err == cudaSuccess) err = make_map(&map_k, k, sk, b, h, n);
   if (err == cudaSuccess) err = make_map(&map_v, v, sv, b, h, n);
-  if (err == cudaSuccess) err = global_smem_allowance();
+  if (err == cudaSuccess) err = global_smem_allowance<REL_POS>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((n + G_BQ - 1) / G_BQ, b * h);
-  global_kernel<<<grid, G_THREADS, G_SMEM, stream>>>(map_q, map_k, map_v, static_cast<const float*>(bias_h),
-                                                     static_cast<const float*>(bias_w),
-                                                     static_cast<__nv_bfloat16*>(o), h, n, grid_h, scale * LOG2E);
+  const int q_tiles = (n + G_BQ - 1) / G_BQ;
+  const dim3 grid = REL_POS ? dim3(q_tiles, b * h) : dim3(b * h, q_tiles);
+  global_kernel<REL_POS><<<grid, G_THREADS, G_SMEM, stream>>>(
+      map_q, map_k, map_v, static_cast<const float*>(bias_h), static_cast<const float*>(bias_w),
+      static_cast<__nv_bfloat16*>(o), h, n, grid_h, causal, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1114,8 +1049,7 @@ int launch_global(const void* q, const void* k, const void* v, const void* bias_
 // bias_w (b*h, n, grid_w) f32, contiguous; o (b, n, h, 64) bf16, contiguous;
 // n == grid_h * grid_w.  n <= T_MAX: the resident kernel with the bias, for
 // grid_h + grid_w <= RES_HW_MAX; else the global kernel, which takes grid_w
-// == 64 only.  Returns the cudaError_t
-// of the launch.
+// == 64 only.  Returns the cudaError_t of the launch.
 extern "C" int ha_flash_attention_2d(const void* q, const void* k, const void* v, const void* bias_h,
                                      const void* bias_w, void* o, long long sq_b, long long sq_h, long long sq_t,
                                      long long sk_b, long long sk_h, long long sk_t, long long sv_b,
@@ -1128,63 +1062,70 @@ extern "C" int ha_flash_attention_2d(const void* q, const void* k, const void* v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= T_MAX) {
     if (grid_h + grid_w > RES_HW_MAX) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_resident<true>(q, k, v, o, sq, sk, sv, b, h, n, scale,
-                                 RelPos{static_cast<const float*>(bias_h), static_cast<const float*>(bias_w),
-                                        grid_h, grid_w},
-                                 s);
+    return launch_resident<true, false>(q, k, v, o, sq, sk, sv, b, h, n, scale,
+                                        RelPos{static_cast<const float*>(bias_h), static_cast<const float*>(bias_w),
+                                               grid_h, grid_w},
+                                        s);
   }
   if (grid_w != G_W) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_global(q, k, v, bias_h, bias_w, o, sq, sk, sv, b, h, n, grid_h, scale, s);
+  return launch_global<true>(q, k, v, bias_h, bias_w, o, sq, sk, sv, b, h, n, grid_h, 0, scale, s);
 }
 
-// K2: q, k, v, o (bh, t, d) bf16 (a contiguous (B, H, T, D) tensor); keys at or
-// past t_valid are masked; causal != 0 masks k > q.  Returns the cudaError_t.
-extern "C" int ha_flash_attention(const void* q, const void* k, const void* v, void* o, int bh, int t, int d,
-                                  int causal, int t_valid, float scale, void* stream) {
-  if (d != 64) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_streamed(q, k, v, o, bh, t, causal, t_valid, scale, static_cast<cudaStream_t>(stream));
-}
-
-// K2, non-causal, t <= T_MAX: q, k, v (b, h, t, 64) bf16 at strides s*_b,
-// s*_h, s*_t (elements; multiples of 8, starts 16-byte aligned); o (b, t, h,
-// 64) bf16, contiguous.  Returns the cudaError_t of the launch.
+// K2's two routes, each with the same arguments: q, k, v (b, h, t, 64) bf16
+// at strides s*_b, s*_h, s*_t (elements; multiples of 8, starts 16-byte
+// aligned); o (b, t, h, 64) bf16, contiguous; causal != 0 masks key >
+// query.  Each returns the cudaError_t of the launch.
+// t <= T_MAX: the resident kernel.
 extern "C" int ha_flash_attention_resident(const void* q, const void* k, const void* v, void* o,
                                            long long sq_b, long long sq_h, long long sq_t, long long sk_b,
                                            long long sk_h, long long sk_t, long long sv_b, long long sv_h,
-                                           long long sv_t, int b, int h, int t, int d, float scale,
+                                           long long sv_t, int b, int h, int t, int d, int causal, float scale,
                                            void* stream) {
   if (d != 64 || t <= 0 || t > T_MAX || b <= 0 || h <= 0 || b * h > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_resident<false>(q, k, v, o, Strides{sq_b, sq_h, sq_t}, Strides{sk_b, sk_h, sk_t},
-                                Strides{sv_b, sv_h, sv_t}, b, h, t, scale, RelPos{nullptr, nullptr, 0, 0},
-                                static_cast<cudaStream_t>(stream));
+  const Strides sq{sq_b, sq_h, sq_t}, sk{sk_b, sk_h, sk_t}, sv{sv_b, sv_h, sv_t};
+  const RelPos none{nullptr, nullptr, 0, 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return causal ? launch_resident<false, true>(q, k, v, o, sq, sk, sv, b, h, t, scale, none, s)
+                : launch_resident<false, false>(q, k, v, o, sq, sk, sv, b, h, t, scale, none, s);
 }
 
-// The resident kernel's plan for (bh heads, t tokens), into out[0..3]:
-// query tiles per block, blocks per head, blocks per SM, SMs.  hw: grid_h +
-// grid_w for K1 (the bias on), 0 for K2.  Returns a cudaError_t.
-extern "C" int ha_flash_attention_plan(int bh, int t, int hw, int* out) {
-  if (t <= 0 || t > T_MAX || hw < 0 || hw > RES_HW_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  Plan plan;
-  const cudaError_t err = hw ? resident_plan<true>(bh, t, hw, &plan) : resident_plan<false>(bh, t, 0, &plan);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = plan.tiles_per_block;
-  out[1] = plan.splits;
-  out[2] = plan.blocks_per_sm;
-  out[3] = plan.sms;
-  return 0;
+// t > T_MAX: the global kernel without the bias.
+extern "C" int ha_flash_attention_long(const void* q, const void* k, const void* v, void* o, long long sq_b,
+                                       long long sq_h, long long sq_t, long long sk_b, long long sk_h,
+                                       long long sk_t, long long sv_b, long long sv_h, long long sv_t, int b, int h,
+                                       int t, int d, int causal, float scale, void* stream) {
+  if (d != 64 || t <= T_MAX || b <= 0 || h <= 0 || (t + G_BQ - 1) / G_BQ > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_global<false>(q, k, v, nullptr, nullptr, o, Strides{sq_b, sq_h, sq_t}, Strides{sk_b, sk_h, sk_t},
+                              Strides{sv_b, sv_h, sv_t}, b, h, t, 0, causal != 0, scale,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The resident kernel's plan for (bh heads, t tokens) into out[0..7] (see
+// resident_report).  hw: grid_h + grid_w for K1 (the bias on), 0 for K2;
+// causal: K2's causal instantiation.  Returns a cudaError_t.
+extern "C" int ha_flash_attention_plan(int bh, int t, int hw, int causal, int* out) {
+  if (t <= 0 || t > T_MAX || hw < 0 || hw > RES_HW_MAX || (hw && causal))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = hw       ? resident_report<true, false>(bh, t, hw, out)
+                          : causal ? resident_report<false, true>(bh, t, 0, out)
+                                   : resident_report<false, false>(bh, t, 0, out);
+  return static_cast<int>(err);
 }
 
 // The global kernel's launch for (bh heads, n tokens), into out[0..3]:
 // blocks per head, blocks, blocks per SM (the occupancy calculator's), SMs.
-// Returns a cudaError_t.
-extern "C" int ha_flash_attention_2d_global_plan(int bh, int n, int* out) {
+// rel_pos: K1's instantiation, else K2's.  Returns a cudaError_t.
+extern "C" int ha_flash_attention_global_plan(int bh, int n, int rel_pos, int* out) {
   if (n <= T_MAX || bh <= 0) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = global_smem_allowance();
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, global_kernel, G_THREADS, G_SMEM);
+  if (err == cudaSuccess) err = rel_pos ? global_smem_allowance<true>() : global_smem_allowance<false>();
+  if (err == cudaSuccess)
+    err = rel_pos ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, global_kernel<true>, G_THREADS, G_SMEM)
+                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, global_kernel<false>, G_THREADS, G_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = (n + G_BQ - 1) / G_BQ;
   out[1] = out[0] * bh;

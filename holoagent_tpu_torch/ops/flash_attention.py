@@ -13,23 +13,27 @@ tensor goes through a kernel or the wrapper raises.  Each wrapper counts
 its kernel launches in ``<wrapper>.launches``; while ``<wrapper>.trace`` is a
 list, it also appends CUDA events around each launch (see ``_cuda_build.launch``).
 
-The kernels take bf16 with D = 64.  Routes (``k1_route``, and ``T_MAX``, the
-kernel's own limit):
+The kernels take bf16 with D = 64.  Routes (``k1_route``, ``k2_route``, and
+``T_MAX``, the kernel's own limit):
 - K1, N <= ``T_MAX`` (the SAM windows): the resident kernel with the bias,
   for grids with h + w <= ``RES_HW_MAX``;
 - K1, N > ``T_MAX`` (the SAM global layers): the TMA + ``wgmma`` global
-  kernel, for grids ``GLOBAL_W`` wide (every SAM variant at 1024 px); any
-  other grid raises;
-- K2, non-causal T <= ``T_MAX`` (every CLIP layer): the resident kernel;
-- K2, causal or T > ``T_MAX``: the streamed kernel, which takes contiguous
-  (BH, N, D) tensors: the wrapper copies q, k and v when they are not and
-  returns a contiguous output.
-The resident and global kernels read q, k and v where they lie: any batch,
-head and token strides that are multiples of 16 bytes, last dim contiguous,
-such as ``_attend``'s and ``_attention_2d``'s views of a fused (B, T, 3W)
-projection (``kernel_layout``; any other layout is copied).  They write a
-(B, T, H, D) buffer and the wrapper returns its (B, H, T, D) transpose
-(``attention_output``), so the caller's transpose back to (B, T, W) is a view.
+  kernel with the bias, for grids ``GLOBAL_W`` wide (every SAM variant at
+  1024 px); any other grid raises;
+- K2, T <= ``T_MAX``, causal or not ("resident": every CLIP visual layer,
+  the CLIP text tower): the resident kernel without the bias; with causal
+  each query tile skips the keys past its last row and masks only the
+  chunk that holds its diagonal;
+- K2, T > ``T_MAX``, causal or not ("long": long prefills): the same TMA +
+  ``wgmma`` kernel without the bias, its key loop ending at the diagonal
+  tile with causal.
+Every kernel reads q, k and v where they lie: any batch, head and token
+strides that are multiples of 16 bytes, last dim contiguous, such as
+``_attend``'s and ``_attention_2d``'s views of a fused (B, T, 3W) projection
+(``strided_inputs``; a layout no kernel reads in place is copied by
+``kernel_layout``).  Each writes a (B, T, H, D) buffer and the wrapper returns
+its (B, H, T, D) transpose (``attention_output``), so the caller's transpose
+back to (B, T, W) is a view and no K2 call copies anything.
 """
 
 from __future__ import annotations
@@ -89,10 +93,10 @@ def flash_attention_2d_ref(
 _p, _i, _f, _l = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 LIB = CudaLibrary("flash_attention.cu", {
     "ha_flash_attention_2d": [_p, _p, _p, _p, _p, _p, *[_l] * 9, _i, _i, _i, _i, _i, _i, _f, _p],
-    "ha_flash_attention": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _p],
-    "ha_flash_attention_resident": [_p, _p, _p, _p, *[_l] * 9, _i, _i, _i, _i, _f, _p],
-    "ha_flash_attention_plan": [_i, _i, _i, ctypes.POINTER(ctypes.c_int)],
-    "ha_flash_attention_2d_global_plan": [_i, _i, ctypes.POINTER(ctypes.c_int)],
+    "ha_flash_attention_resident": [_p, _p, _p, _p, *[_l] * 9, _i, _i, _i, _i, _i, _f, _p],
+    "ha_flash_attention_long": [_p, _p, _p, _p, *[_l] * 9, _i, _i, _i, _i, _i, _f, _p],
+    "ha_flash_attention_plan": [_i, _i, _i, _i, ctypes.POINTER(ctypes.c_int)],
+    "ha_flash_attention_global_plan": [_i, _i, _i, ctypes.POINTER(ctypes.c_int)],
 })
 
 
@@ -134,25 +138,31 @@ def attention_output(b: int, h: int, t: int, d: int, dtype: torch.dtype, device)
     return torch.empty((b, t, h, d), dtype=dtype, device=device).transpose(1, 2)
 
 
-def resident_plan(bh: int, t: int, hw: int = 0) -> dict:
+def resident_plan(bh: int, t: int, hw: int = 0, causal: bool = False) -> dict:
     """The resident kernel's launch for `bh` heads of `t` tokens on the
     current card: query tiles per block, blocks per head, blocks per SM
-    (CUDA's occupancy calculator), SMs.  `hw`: grid_h + grid_w for K1 (the
-    bias staged too), 0 for K2."""
-    out = (ctypes.c_int * 4)()
-    err = LIB.load().ha_flash_attention_plan(bh, t, hw, out)
+    (CUDA's occupancy calculator), SMs, registers a thread, shared memory a
+    block in bytes, and the blocks per SM that the registers alone and the
+    shared memory alone allow (the card's own figures).  `hw`: grid_h +
+    grid_w for K1 (the bias staged too), 0 for K2; `causal`: K2's causal
+    instantiation."""
+    out = (ctypes.c_int * 8)()
+    err = LIB.load().ha_flash_attention_plan(bh, t, hw, int(causal), out)
     if err:
         raise RuntimeError(f"ha_flash_attention_plan failed: cudaError {err}")
-    return dict(zip(("tiles_per_block", "blocks_per_head", "blocks_per_sm", "sms"), out))
+    keys = ("tiles_per_block", "blocks_per_head", "blocks_per_sm", "sms", "regs", "smem", "blocks_by_regs",
+            "blocks_by_smem")
+    return dict(zip(keys, out))
 
 
-def global_plan(bh: int, n: int) -> dict:
-    """K1's global kernel's launch for `bh` heads of `n` tokens on the
-    current card: blocks per head, blocks, blocks per SM, SMs."""
+def global_plan(bh: int, n: int, rel_pos: bool = True) -> dict:
+    """The global kernel's launch for `bh` heads of `n` tokens on the
+    current card, K1's (`rel_pos`) or K2's long route: blocks per head,
+    blocks, blocks per SM, SMs."""
     out = (ctypes.c_int * 4)()
-    err = LIB.load().ha_flash_attention_2d_global_plan(bh, n, out)
+    err = LIB.load().ha_flash_attention_global_plan(bh, n, int(rel_pos), out)
     if err:
-        raise RuntimeError(f"ha_flash_attention_2d_global_plan failed: cudaError {err}")
+        raise RuntimeError(f"ha_flash_attention_global_plan failed: cudaError {err}")
     return dict(zip(("blocks_per_head", "grid", "blocks_per_sm", "sms"), out))
 
 
@@ -167,6 +177,12 @@ def k1_route(h: int, w: int) -> str:
     if w != GLOBAL_W:
         raise ValueError(f"grid {h}x{w}, N > {T_MAX}: K1's global kernel takes width {GLOBAL_W}")
     return "global"
+
+
+def k2_route(t: int, causal: bool) -> str:
+    """The kernel K2 launches for T tokens: "resident" for T <= T_MAX,
+    "long" (the TMA + wgmma kernel) beyond; causal or not, the same."""
+    return "resident" if t <= T_MAX else "long"
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +246,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """K2: blockwise attention, optional causal mask (JAX reference:
     holoagent_tpu/ops/flash_attention.py::flash_attention).  Any T: the
-    kernel masks the ragged key edge itself."""
+    kernel masks the ragged key edge itself.  On the card the output is the
+    (B, H, T, D) view of a (B, T, H, D) buffer."""
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
     b, h, t, d = q.shape
@@ -238,20 +255,12 @@ def flash_attention(
         return flash_attention_ref(q, k, v, causal=causal)
     if d != HEAD_DIM:
         raise ValueError(f"head dim {d}: the kernel takes {HEAD_DIM}")
-    stream = torch.cuda.current_stream(q.device)
-    if causal or t > T_MAX:  # the streamed kernel
-        q, k, v = (kernel_input(x, nm, torch.bfloat16) for x, nm in ((q, "q"), (k, "k"), (v, "v")))
-        o = torch.empty_like(q)
-        launch(
-            flash_attention, (b, h, t, causal), stream, LIB.load().ha_flash_attention,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, t, d, int(causal), t, d**-0.5,
-        )
-        return o
+    entry = {"resident": "ha_flash_attention_resident", "long": "ha_flash_attention_long"}[k2_route(t, causal)]
     (q, sq), (k, sk), (v, sv) = strided_inputs(q, k, v)
     o = attention_output(b, h, t, d, q.dtype, q.device)
     launch(
-        flash_attention, (b, h, t, causal), stream, LIB.load().ha_flash_attention_resident,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *sq, *sk, *sv, b, h, t, d, d**-0.5,
+        flash_attention, (b, h, t, causal), torch.cuda.current_stream(q.device), getattr(LIB.load(), entry),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *sq, *sk, *sv, b, h, t, d, int(causal), d**-0.5,
     )
     return o
 

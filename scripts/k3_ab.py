@@ -9,18 +9,17 @@ left out: it reads the int8 x and row scales the other builds left in the
 shared scratch, so it serves only to time stage B and, by difference, stage
 A.  Each build is compiled with the port's nvcc flags, called through its C
 entry point, checked for bit equality with the plain version
-(quant_matmul_ref), and timed with CUDA events (median of 5
+(quant_matmul_ref), and timed with chip_smoke.py's `time_ms` (median of 5
 samples of 20 calls, enqueued while a device-side sleep holds the stream,
 so host overhead does not count), the builds in the order A, B, ..., B, A.
 torch._int_mm on the pre-quantized operands is timed beside them as a
-yardstick.  Needs nvcc and one card; writes the builds under
-holoagent_tpu_torch/_build/k3_ab.
+yardstick.  Each build keeps its faster turn (scripts/kernel_ab.py).  Needs
+nvcc and one card; writes the builds under holoagent_tpu_torch/_build/k3_ab.
 """
 
 from __future__ import annotations
 
 import ctypes
-import statistics
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -31,30 +30,17 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+import chip_smoke as cs  # noqa: E402
+import kernel_ab  # noqa: E402
 from holoagent_tpu_torch.ops import quant_matmul as qm  # noqa: E402
 from holoagent_tpu_torch.ops._cuda_build import BUILD_DIR, NVCC_FLAGS, nvcc  # noqa: E402
 
 SHAPES = ((8481, 1024, 3072), (8481, 1024, 4096), (8481, 4096, 1024), (8481, 1024, 1024),
           (4096, 3072, 768), (4900, 768, 2304), (33153, 1024, 4096))
-DIAG = {
+FLAGS = {"--diag": {
     "gemm_only": ("  int err = x_f32 ? quantize<float>(x, x_q, a_s, m, k, s) : quantize<__nv_bfloat16>(x, x_q, a_s, m, k, s);",
                   "  int err = 0;"),
-}
-
-
-def variants(argv):
-    source = qm.LIB.source.read_text()
-    out = {"source": source}
-    for arg in argv:
-        if arg == "--diag":
-            for name, (a, b) in DIAG.items():
-                if a not in source:
-                    raise SystemExit(f"--diag {name}: the source no longer has the line it patches")
-                out[name] = source.replace(a, b)
-        else:
-            name, path = arg.split("=", 1)
-            out[name] = Path(path).read_text()
-    return out
+}}
 
 
 def build(name, text, out_dir):
@@ -70,32 +56,13 @@ def build(name, text, out_dir):
     return fn, regs[0] if regs else ""
 
 
-def time_ms(fn, samples=5, reps=20):
-    """Median device time of a call; a device-side sleep holds the stream
-    while each sample is enqueued, so host overhead does not count."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(samples):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(5_000_000)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        out.append(a.elapsed_time(b) / reps)
-    return statistics.median(out)
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("k3_ab: CUDA is not available", file=sys.stderr)
         return 1
     out_dir = BUILD_DIR / "k3_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    texts = variants(sys.argv[1:])
+    texts = kernel_ab.variants(qm.LIB.source, sys.argv[1:], FLAGS)
     with ThreadPoolExecutor(len(texts)) as ex:
         built = dict(zip(texts, ex.map(lambda kv: build(*kv, out_dir), texts.items())))
     for name, (_, regs) in built.items():
@@ -112,8 +79,9 @@ def main() -> int:
         x_q = torch.empty(m, k, dtype=torch.int8, device="cuda")  # scratch shared by every build
         a_s = torch.empty(m, dtype=torch.float32, device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
-        ms, same = {}, {}
-        for name in names + names[::-1]:
+        same = {}
+
+        def measure(name):
             fn = built[name][0]
 
             def call():
@@ -125,14 +93,14 @@ def main() -> int:
                 raise SystemExit(f"{name}: launch failed")
             torch.cuda.synchronize()
             same[name] = bool(torch.equal(out, ref))
-            ms[name] = min(ms.get(name, float("inf")), time_ms(call))
+            return cs.time_ms(call, samples=5, reps=20)
+
+        ms = kernel_ab.best_of_turns(names, measure)
         x_q8 = qm.quantize_rows(x)[0].to(torch.int8)
-        lib_ms = time_ms(lambda: torch._int_mm(x_q8, w_q.t()))
+        lib_ms = cs.time_ms(lambda: torch._int_mm(x_q8, w_q.t()), samples=5, reps=20)
         cells = "  ".join(f"{nm} {ms[nm]:.4f}{'' if same[nm] else ' (differs)'}" for nm in names)
         print(f"M={m} K={k} N={n} bf16->bf16 ms: {cells}  _int_mm {lib_ms:.4f}", flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True)
-    print(smi.stdout.strip())
+    print(kernel_ab.card())
     return 0
 
 

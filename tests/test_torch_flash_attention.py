@@ -2,6 +2,8 @@
 kernels run in interpret mode, at the shapes of test_flash_attention.py.
 Tolerance 2e-3 in float32 (the kernels' own test tolerance)."""
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +21,7 @@ def _qkv(rng, shape):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("t", [256, 384, 200, 257])
+@pytest.mark.parametrize("t", [256, 384, 200, 257, 77, 1024])
 def test_flash_attention_ref_matches_pallas(rng, causal, t):
     q, k, v = _qkv(rng, (2, 3, t, 64))
     ref = jfa.flash_attention(
@@ -87,6 +89,21 @@ def test_build_key_tracks_the_source():
     assert "cp.async.cg.shared.global" in text and "ldmatrix.sync.aligned.m8n8.x4.trans" in text
 
 
+@pytest.mark.parametrize("t,causal,route", [
+    (77, True, "resident"),  # the CLIP text tower
+    (257, False, "resident"),  # every CLIP visual layer
+    (320, True, "resident"),  # the resident kernel's limit
+    (384, True, "long"),
+    (600, False, "long"),
+])
+def test_k2_route(t, causal, route):
+    """K2 routes on T alone: the resident kernel up to the source's T_MAX,
+    causal or not, the TMA + wgmma kernel beyond."""
+    text = tfa.LIB.source.read_text()
+    assert f"constexpr int T_MAX = {tfa.T_MAX};" in text and tfa.T_MAX == 320
+    assert tfa.k2_route(t, causal) == route
+
+
 def test_k2_routes_on_the_kernels_length_limit():
     """The wrapper's T_MAX, on which it routes to the resident kernel, is
     the one the kernel's C entry checks."""
@@ -114,6 +131,23 @@ def test_k2_reads_attend_views_in_place():
         assert x.data_ptr() == qkv.data_ptr() + i * heads * d * qkv.element_size()
 
 
+@pytest.mark.parametrize("b,t,heads", [(256, 77, 12), (4, 1024, 16)], ids=["text_tower", "vlm_base_prefill"])
+def test_k2_reads_causal_attend_views_in_place(b, t, heads):
+    """_attend's causal views pass strided_layout with the strides both K2
+    routes take: the text tower's (T = 77, 12 heads, the resident route)
+    and a vlm-base prefill layer's (T = 1024, 16 heads, the long route)."""
+    d = 64
+    qkv, views = _attend_views(b, t, heads, d)
+    strides = (t * 3 * heads * d, d, 3 * heads * d)
+    for i, x in enumerate(views):
+        assert x.shape == (b, heads, t, d)
+        assert tfa.strided_layout(x) == strides
+        y, got = tfa.kernel_layout(x)
+        assert y is x and got == strides
+        assert x.data_ptr() == qkv.data_ptr() + i * heads * d * qkv.element_size()
+    assert tfa.k2_route(t, True) == ("resident" if t <= tfa.T_MAX else "long")
+
+
 def test_k2_output_transposes_back_without_a_copy():
     """The (B, H, T, D) view of the kernel's (B, T, H, D) output: _attend's
     .transpose(1, 2).reshape(b, t, w) of it is a view of the same memory."""
@@ -126,8 +160,8 @@ def test_k2_output_transposes_back_without_a_copy():
 
 @pytest.mark.parametrize("layout", ["transposed", "misaligned", "odd_token_stride"])
 def test_k2_copies_layouts_the_kernel_does_not_take(layout):
-    """A layout K2's resident kernel cannot read in place is copied, as the
-    streamed kernel's inputs are: contiguous, 16-byte aligned."""
+    """A layout no K2 kernel can read in place is copied: contiguous,
+    16-byte aligned."""
     b, t, heads, d = 2, 40, 3, 64
     if layout == "transposed":  # head dim not contiguous
         x = torch.randn(b, heads, d, t).to(torch.bfloat16).transpose(-1, -2)
@@ -200,14 +234,16 @@ def test_k1_wrapper_takes_3d_and_4d_inputs(rng):
 
 def test_k1_routes_on_the_kernels_limits():
     """The wrapper's T_MAX, GLOBAL_W and RES_HW_MAX are the source's; the
-    global kernel is TMA + wgmma, and the streamed kernel no longer has a
-    bias instantiation."""
+    global kernel is TMA + wgmma and serves K1's long grids and K2's long
+    route alike; the streamed mma.sync kernel is gone."""
     text = tfa.LIB.source.read_text()
     assert f"constexpr int T_MAX = {tfa.T_MAX};" in text
     assert f"constexpr int G_W = {tfa.GLOBAL_W};" in text
     assert f"constexpr int RES_HW_MAX = {tfa.RES_HW_MAX};" in text
     assert "wgmma.mma_async" in text and "cp.async.bulk.tensor" in text and "setmaxnreg" in text
-    assert "flash_kernel<D, REL_POS>" not in text and "flash_kernel(" in text
+    for gone in ("flash_kernel", "launch_streamed", "ha_flash_attention"):  # the Pallas _flash_kernel is named
+        assert not re.search(rf"\b{gone}\b", text), gone
+    assert "launch_global<true>(" in text and "launch_global<false>(" in text  # K1's and K2's long routes
     assert tfa.k1_route(14, 14) == "resident"  # vit_b windows
     assert tfa.k1_route(64, 64) == "global"  # every SAM variant's global layers at 1024 px
     assert tfa.k1_route(7, 64) == "global"  # an odd grid height: masked in the kernel
