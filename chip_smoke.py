@@ -38,15 +38,27 @@ Phases (any failure exits non-zero, with no result line):
      path in bf16: apps.build_map.run (the Mapper, label features,
      HMSGraph.build, room names, save), HMSGraph.load of the saved
      directory (checked equal to the built graph), then
-     FSRQueryEngine.query_hierarchy over fixed instructions.  Per-stage ms,
-     frames/s or ms/keyframe, peak memory; the kernels' launch counts and
-     their device time inside each run.
+     FSRQueryEngine.query_hierarchy over fixed instructions; (e) the
+     accuracy protocol's oracle row (apps.eval_protocol.run: GT masks and
+     one-hot features through the Mapper, the graph build and the
+     evaluator, two_room and three_room at seed 0, 240x320, no towers),
+     its metrics held to the reference's; (f) the FSR slow path:
+     apps.query_bench.run --slow --vlm clip over (d)'s graph, keyframes
+     resident on the card, the gallery padded to 512 objects with crops
+     encoded by the visual tower (K2), every visual and text batch counted
+     against K2's launches, the stage latencies printed; (g) the fast
+     oracle row of apps.query_bench over (e)'s three_room graph with the
+     70 bilingual instructions, top-1 and recall@5 held at 1.0.  Per-stage
+     ms, frames/s or ms/keyframe, peak memory; the kernels' launch counts
+     and their device time inside each run.  Every K2 shape a path launched
+     that no case of phase 3 held gets its own case before the kernels line.
 Prints one JSON line of kernels, then the nvidia-smi line, then as the last
 line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import json
@@ -64,10 +76,11 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from holoagent_tpu_torch.apps import build_map  # noqa: E402
+from holoagent_tpu_torch.apps import build_map, eval_protocol, query_bench  # noqa: E402
 from holoagent_tpu_torch.apps.common import load_models, tokenizer  # noqa: E402
 from holoagent_tpu_torch.config import from_dict  # noqa: E402
 from holoagent_tpu_torch.dataloader import SyntheticDataset, SyntheticScene  # noqa: E402
+from holoagent_tpu_torch.eval.instruction_sets import three_room_instructions  # noqa: E402
 from holoagent_tpu_torch.memory.hmsg import HMSGraph  # noqa: E402
 from holoagent_tpu_torch.memory.mapping import Mapper  # noqa: E402
 from holoagent_tpu_torch.models import clip as clip_mod  # noqa: E402
@@ -76,7 +89,7 @@ from holoagent_tpu_torch.models import transformer as tfm  # noqa: E402
 from holoagent_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from holoagent_tpu_torch.ops import quant_matmul as qm  # noqa: E402
 from holoagent_tpu_torch.perception.extractor import extract_frame_features_tiered  # noqa: E402
-from holoagent_tpu_torch.query import FSRQueryEngine  # noqa: E402
+from holoagent_tpu_torch.query import ClipVLM, FSRQueryEngine  # noqa: E402
 from holoagent_tpu_torch.utils.labels import DEFAULT_ROOM_TYPES, SCANNET_LABELS_20  # noqa: E402
 from holoagent_tpu_torch.utils.timing import StageTimer  # noqa: E402
 
@@ -422,25 +435,28 @@ def kernel_phases():
     cases.append(k2_case("k2_prefill_causal_t1024", 4, 16, 1024, True, gen, packed=True))
     cases.append(k2_case("k2_t600", 4, 16, 600, False, gen, packed=True))  # the long route, a ragged key tile
     for c in cases:
-        log(f"[kernel] {c['name']:23s} {c['shape']:49s} err {c['max_abs_err']:.3e} (tol {c['tol']:.3e}, "
-            f"max|ref| {c['ref_max']:.3e}, rms(ref) {c['ref_rms']:.3e}, rel rms err {c['rel_rms_err']:.3e} "
-            f"tol {REL_RMS_TOL:.3e}) "
-            f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  library {c['library_ms']:.4f} ms  "
-            f"({c['ratio_to_library']:.2f}x)  bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
-        if "alloc_bytes" in c:
-            log(f"[kernel] {c['name']}: one call's peak allocation {c['alloc_bytes']} bytes = its output's "
-                f"{c['out_bytes']}: no copy of q, k, v")
-        if "plan" in c:
-            p = c["plan"]
-            tiles = f"{p['tiles_per_block']} query tiles a block, " if "tiles_per_block" in p else ""
-            limit = (f"; {p['regs']} registers a thread, {p['smem']} bytes of shared memory a block: the registers "
-                     f"allow {p['blocks_by_regs']} blocks an SM, shared memory {p['blocks_by_smem']}, so "
-                     f"{p['limit']} set the limit" if "limit" in p else "")
-            log(f"[kernel] {c['name']}: {p['kernel']} kernel, {tiles}"
-                f"{p['blocks_per_head']} blocks a head, {p['grid']} blocks, {p['blocks_per_sm']} blocks per SM "
-                f"on {p['sms']} SMs: {p['waves']:.2f} waves{limit}")
+        log_attention_case(c)
     cases += k3_phase()
     return {c["name"]: c for c in cases}
+
+
+def log_attention_case(c) -> None:
+    log(f"[kernel] {c['name']:23s} {c['shape']:49s} err {c['max_abs_err']:.3e} (tol {c['tol']:.3e}, "
+        f"max|ref| {c['ref_max']:.3e}, rms(ref) {c['ref_rms']:.3e}, rel rms err {c['rel_rms_err']:.3e} "
+        f"tol {REL_RMS_TOL:.3e}) "
+        f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  library {c['library_ms']:.4f} ms  "
+        f"({c['ratio_to_library']:.2f}x)  bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+    if "alloc_bytes" in c:
+        log(f"[kernel] {c['name']}: one call's peak allocation {c['alloc_bytes']} bytes = its output's "
+            f"{c['out_bytes']}: no copy of q, k, v")
+    p = c["plan"]
+    tiles = f"{p['tiles_per_block']} query tiles a block, " if "tiles_per_block" in p else ""
+    limit = (f"; {p['regs']} registers a thread, {p['smem']} bytes of shared memory a block: the registers "
+             f"allow {p['blocks_by_regs']} blocks an SM, shared memory {p['blocks_by_smem']}, so "
+             f"{p['limit']} set the limit" if "limit" in p else "")
+    log(f"[kernel] {c['name']}: {p['kernel']} kernel, {tiles}"
+        f"{p['blocks_per_head']} blocks a head, {p['grid']} blocks, {p['blocks_per_sm']} blocks per SM "
+        f"on {p['sms']} SMs: {p['waves']:.2f} waves{limit}")
 
 
 # ---------------------------------------------------------------------------
@@ -681,40 +697,39 @@ def same_graph(built, loaded) -> None:
         check((a.view_id, a.img_id, a.object_ids) == (b.view_id, b.img_id, b.object_ids), "loaded graph: views")
 
 
-def graph_path(clip, sam, text, ds, cfg, tag):
+def graph_path(clip, sam, text, ds, cfg, tag, save_path):
     """apps.build_map.run (the Mapper, label features, HMSGraph.build, room
-    names, save) into a temporary directory, HMSGraph.load of the saved
-    graph, then the fast queries, counted as one run.  K1: 12 launches a
-    keyframe; K2: 24 a keyframe and 12 a padded text batch (SCANNET20's
-    prompts, ROOM_TYPES', and each engine call that encodes new texts)."""
+    names, save) into `save_path`, HMSGraph.load of the saved graph, then
+    the fast queries, counted as one run.  K1: 12 launches a keyframe; K2:
+    24 a keyframe and 12 a padded text batch (SCANNET20's prompts,
+    ROOM_TYPES', and each engine call that encodes new texts)."""
     skip = cfg.pipeline.skip_frames
     nf = len(range(0, len(ds), skip))
     Mapper(cfg, clip, sam).process_frame(ds[0])  # warm-up, outside the counted run
     tok = tokenizer()
     timer = StageTimer("cuda")
     engine_batches = []
-    with tempfile.TemporaryDirectory() as tmp:
-        gcfg = from_dict({**CONFIG, "main": {**CONFIG["main"], "save_path": tmp}})
+    gcfg = from_dict({**CONFIG, "main": {**CONFIG["main"], "save_path": save_path}})
 
-        def run():
-            graph_dir, built = build_map.run(gcfg, dataset=ds, models=(clip, sam, clip.variant, sam.variant, text),
-                                             timer=timer)
-            with timer.stage("load"):
-                loaded = HMSGraph.load(graph_dir)
-            eng = FSRQueryEngine(loaded, text, tok)
-            encode, seen = eng.text_feats, set()
+    def run():
+        graph_dir, built = build_map.run(gcfg, dataset=ds, models=(clip, sam, clip.variant, sam.variant, text),
+                                         timer=timer)
+        with timer.stage("load"):
+            loaded = HMSGraph.load(graph_dir)
+        eng = FSRQueryEngine(loaded, text, tok)
+        encode, seen = eng.text_feats, set()
 
-            def text_feats(texts):  # count the padded text batches the engine encodes
-                missing = [t for t in texts if t not in seen]
-                if missing:
-                    engine_batches.append(math.ceil(len(missing) * len(clip_mod.TEMPLATES) / 256))
-                seen.update(texts)
-                return encode(texts)
+        def text_feats(texts):  # count the padded text batches the engine encodes
+            missing = [t for t in texts if t not in seen]
+            if missing:
+                engine_batches.append(math.ceil(len(missing) * len(clip_mod.TEMPLATES) / 256))
+            seen.update(texts)
+            return encode(texts)
 
-            eng.text_feats = text_feats
-            return built, loaded, [(q, eng.query_hierarchy(q)) for q in QUERIES]
+        eng.text_feats = text_feats
+        return graph_dir, built, loaded, [(q, eng.query_hierarchy(q)) for q in QUERIES]
 
-        (built, loaded, answers), wall, launches, in_path, peak = counted(run)
+    (graph_dir, built, loaded, answers), wall, launches, in_path, peak = counted(run)
     log(f"[{tag}] build_map.run + load + {len(QUERIES)} queries over {nf} keyframes in {wall:.3f} s")
     report(tag, nf, wall, timer, launches, in_path, peak, {})
     label_batches = sum(math.ceil(len(v) * len(clip_mod.TEMPLATES) / 256) for v in (SCANNET_LABELS_20, DEFAULT_ROOM_TYPES))
@@ -743,7 +758,152 @@ def graph_path(clip, sam, text, ds, cfg, tag):
         log(f"[{tag}] query {q!r}: floor {floor.floor_id if floor else None}, rooms {[r.room_id for r in rooms]}, "
             f"objects {[(o.object_id, o.name) for o in objs]}, FastMatching {fast[-1]:.3f} ms")
     log(f"[{tag}] FastMatching per query: median {statistics.median(fast):.3f} ms, max {max(fast):.3f} ms")
-    return dict(launches=launches, in_path=in_path, nf=nf)
+    return dict(launches=launches, in_path=in_path, nf=nf, graph_dir=graph_dir)
+
+
+# ---------------------------------------------------------------------------
+# (e)-(g): the oracle row, the slow path, the fast oracle row
+# ---------------------------------------------------------------------------
+
+# The reference's published oracle row: the JAX package on the CPU, per seed
+# (layouts two_room then three_room, seeds 0..seeds-1).
+ORACLE_RECORD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results", "eval_protocol.json")
+# Held to the record's value for the same layout and seed, exactly: the
+# metrics it records at 1.0 or 0.95.
+ORACLE_HELD = {
+    "room precision": ("rooms", "precision"), "room recall": ("rooms", "recall"),
+    "object precision@50": ("objects", "prec_at_50"), "object recall@50": ("objects", "rec_at_50"),
+    "object AUC": ("objects", "auc"), "semantic top-1": ("objects", "semantic_top_k", "1"),
+    "semantic top-3": ("objects", "semantic_top_k", "3"), "segmentation mIoU": ("segmentation", "mIoU"),
+}
+# The floor bound error of the JAX package's eval_protocol.run_one at seed 0,
+# on the CPU, in both layouts (the port's CPU run equals it to 1e-6,
+# tests/test_torch_eval.py).  The record's seed-0 value, 0.1005 m, is 0.0074
+# m from it: the record predates the package's present mapping code.
+REF_BOUND_ERROR = 0.1079265832901001
+BOUND_TOL = 0.005  # metres
+
+
+def _dig(m, path):
+    for k in path:
+        m = m[k]
+    return m
+
+
+def oracle_protocol(save_dir, tag):
+    """(e) eval_protocol.run at seed 0 over both layouts on the card, no
+    towers; each run's metrics held to the record, its graph and GT saved
+    under `save_dir`."""
+    with open(ORACLE_RECORD) as f:
+        record = json.load(f)
+    timers = {}
+    summary, wall, launches, in_path, peak = counted(
+        lambda: eval_protocol.run(seeds=1, neural=False, out_md=None, save_dir=save_dir, timers=timers))
+    log(f"[{tag}] eval_protocol.run, seed 0, {', '.join(eval_protocol.LAYOUTS)}: {wall:.3f} s, "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB, launches {launches}")
+    for li, (layout, m) in enumerate(zip(eval_protocol.LAYOUTS, summary["per_seed"])):
+        timer = timers[(layout, 0)]
+        n_frames = eval_protocol.LAYOUTS[layout][2]
+        log(f"[{tag}] {layout}: {n_frames} frames at 240x320 in {timer.ms['run']:.3f} ms")
+        for name, v in sorted(timer.ms.items()):
+            log(f"[{tag}] {layout} stage {name:18s} {v:10.3f} ms total  {v / timer.calls[name]:9.3f} ms/call")
+        want = record["per_seed"][li * record["seeds"]]
+        log(f"[{tag}] {layout}: floors {m['floors']['num_pred']}, rooms {m['rooms']['num_pred']} "
+            f"(GT {m['rooms']['num_gt']}), objects {m['objects']['num_pred']} (GT {m['objects']['num_gt']})")
+        for name, path in ORACLE_HELD.items():
+            got, ref = _dig(m, path), _dig(want, path)
+            log(f"[{tag}] {layout} {name}: {got} (record {ref})")
+            check(got == ref, f"{tag} {layout}: {name} {got} != the record's {ref}")
+        err = m["floors"]["mean_bound_error"]
+        log(f"[{tag}] {layout} floor bound error: {err:.6f} m (the JAX package on the CPU {REF_BOUND_ERROR:.6f}, "
+            f"the record {want['floors']['mean_bound_error']:.6f})")
+        check(abs(err - REF_BOUND_ERROR) <= BOUND_TOL, f"{tag} {layout}: floor bound error {err} m")
+    return dict(launches=launches, in_path=in_path)
+
+
+def slow_path(clip, sam, text, ds, cfg, graph_dir, tag):
+    """(f) query_bench.run --slow --vlm clip over the graph path's graph:
+    keyframes resident on the card, the gallery padded to 512 objects, the
+    fixed queries.  Every visual-tower batch (24 K2 launches) and padded
+    text batch (12) is counted where the callers ask for it, and K2's
+    launches are held to that count."""
+    image_batches, text_batches = [], []
+    encode_image, text_features = clip_mod.encode_image, clip_mod.text_features_multi_template
+
+    def counting_encode_image(visual, images, **kw):
+        image_batches.append(int(images.shape[0]))
+        return encode_image(visual, images, **kw)
+
+    def counting_text_features(t, tok, labels, templates=clip_mod.TEMPLATES, **kw):
+        text_batches.append(math.ceil(len(labels) * len(templates) / 256))
+        return text_features(t, tok, labels, templates, **kw)
+
+    clip_mod.encode_image, clip_mod.text_features_multi_template = counting_encode_image, counting_text_features
+    try:
+        summary, wall, launches, in_path, peak = counted(lambda: query_bench.run(
+            str(graph_dir), list(QUERIES), cfg, use_slow=True, vlm_kind="clip", dataset=ds, pad_gallery=512,
+            models=(clip, sam, clip.variant, sam.variant, text), out_path=os.path.join(graph_dir, "slow.json")))
+    finally:
+        clip_mod.encode_image, clip_mod.text_features_multi_template = encode_image, text_features
+    pad_batches = math.ceil(512 / query_bench.ENCODE_CHUNK)
+    log(f"[{tag}] query_bench --slow --vlm clip, {len(QUERIES)} queries + 1 warm-up, gallery "
+        f"{summary['gallery_size']} objects: {wall:.3f} s, max_memory_allocated {peak / 2**30:.3f} GiB")
+    log(f"[{tag}] visual batches {len(image_batches)} (B: {dict(sorted(collections.Counter(image_batches).items()))}; "
+        f"{pad_batches} of them the gallery's crops), padded text batches {sum(text_batches)}")
+    for k in query_bench.STAGES:
+        log(f"[{tag}] average {k:18s} {1e3 * summary[f'average_{k.lower()}']:10.3f} ms")
+    log(f"[{tag}] Total_Time p50 {1e3 * summary['p50_total_time']:.3f} ms, p95 {1e3 * summary['p95_total_time']:.3f} ms")
+    for r in summary["results"]:
+        log(f"[{tag}] {r['instruction']!r}: objects {r['objects']}, " + ", ".join(
+            f"{k} {1e3 * r[k]:.3f}" for k in query_bench.STAGES) + " ms")
+    expect = {"flash_attention_2d": 0, "quant_matmul": 0,
+              "flash_attention": clip.variant.v_layers * len(image_batches) + text.variant.t_layers * sum(text_batches)}
+    log(f"[{tag}] launches {launches}, expected {expect}")
+    for name, n in expect.items():
+        check(launches[name] == n, f"{tag}: {name} launches {launches[name]} != {n}")
+    for key, (n, t) in in_path["flash_attention"].items():
+        log(f"[{tag}] flash_attention {key}: {n} launches, {t:.4f} ms in the run ({t / n:.4f} ms/launch)")
+    check(summary["gallery_size"] >= 512, f"{tag}: gallery of {summary['gallery_size']} objects")
+    check(len(image_batches) > pad_batches, f"{tag}: the slow path encoded no image")
+    check(all(r["Total_Time"] > 0 and r["objects"] for r in summary["results"]), f"{tag}: a query came back empty")
+    # ClipVLM's features at one gallery batch (every keyframe) against the plain tower
+    imgs = [torch.as_tensor(ds[i].rgb, device="cuda") for i in range(0, len(ds), cfg.pipeline.skip_frames)]
+    f_k = torch.from_numpy(ClipVLM(clip, text, tokenizer())._img_feats(imgs))
+    f_p = clip_mod.encode_image(clip, clip_mod.preprocess(torch.stack(imgs), clip.variant.image_size), impl="xla")
+    cos = (f_k * f_p.cpu()).sum(-1).min().item()
+    log(f"[{tag}] ClipVLM features of {len(imgs)} keyframes through K2 vs the plain tower: min cosine {cos:.6f}")
+    check(cos > 0.9998, f"{tag}: ClipVLM's features disagree with the plain tower")
+    return dict(launches=launches, in_path=in_path)
+
+
+def oracle_query_path(clip, sam, text, cfg, run_dir, tag):
+    """(g) query_bench.run --oracle over (e)'s three_room graph with the 70
+    bilingual instructions: top-1 and recall@5 held at 1.0."""
+    graph_dir, gt_path = os.path.join(run_dir, "graph"), os.path.join(run_dir, "gt", "scene_info.json")
+    g = HMSGraph.load(graph_dir)
+    instructions = three_room_instructions()
+    summary, wall, launches, in_path, peak = counted(lambda: query_bench.run(
+        graph_dir, instructions, cfg, oracle=True, gt_path=gt_path,
+        models=(clip, sam, clip.variant, sam.variant, text), out_path=os.path.join(run_dir, "oracle_query.json")))
+    log(f"[{tag}] graph: {len(g.floors)} floors, {len(g.rooms)} rooms, {len(g.objects)} objects, {len(g.views)} "
+        f"views; {len(instructions)} instructions, {summary['correctness']['n_scored']} scored: top-1 "
+        f"{summary['top1_acc']}, recall@5 {summary['recall_at_5']}; {wall:.3f} s, FastMatching average "
+        f"{1e3 * summary['average_fastmatching']:.3f} ms, launches {launches}")
+    check(summary["correctness"]["n_scored"] == len(instructions), f"{tag}: not every instruction was scored")
+    check(summary["top1_acc"] == 1.0 and summary["recall_at_5"] == 1.0, f"{tag}: {summary['correctness']}")
+    return dict(launches=launches, in_path=in_path)
+
+
+def hold_new_k2_shapes(cases, paths):
+    """A case (packed, as _attend launches it) for every K2 shape a path
+    launched that no case held."""
+    held = {c["key"] for c in cases.values()}
+    new = sorted({k for path in paths.values() for k in path["in_path"]["flash_attention"] if k not in held})
+    gen = torch.Generator().manual_seed(SEED + 3)
+    for b, h, t, causal in new:
+        c = k2_case(f"k2_b{b}_h{h}_t{t}{'_causal' if causal else ''}", b, h, t, causal, gen, packed=True)
+        log_attention_case(c)
+        cases[c["name"]] = c
 
 
 KERNELS = (
@@ -847,7 +1007,15 @@ def main() -> int:
     paths["w8a8"] = main_path(qclip, qsam, ds, qcfg, "w8a8", q8_expect)
     paths["w8a8 extraction, clip_qmm=pallas"] = extraction_path(
         qclip, qsam, ds, qcfg, "w8a8-pallas", q8_expect, paths["w8a8"]["ms"].keyframe_feats)
-    paths["graph: build_map.run, load, queries"] = graph_path(clip, sam, text, ds, cfg, "graph")
+    with tempfile.TemporaryDirectory() as tmp:
+        graph = paths["graph: build_map.run, load, queries"] = graph_path(clip, sam, text, ds, cfg, "graph", tmp)
+        oracle_dir = os.path.join(tmp, "oracle")
+        paths["(e) oracle protocol: eval_protocol.run"] = oracle_protocol(oracle_dir, "oracle")
+        paths["(f) slow path: query_bench --slow --vlm clip"] = slow_path(
+            clip, sam, text, ds, cfg, graph["graph_dir"], "slow")
+        paths["(g) oracle retrieval: query_bench --oracle"] = oracle_query_path(
+            clip, sam, text, cfg, os.path.join(oracle_dir, "three_room_seed0"), "oracle-query")
+    hold_new_k2_shapes(cases, paths)
     print(json.dumps(kernels_line(cases, paths)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -59,16 +59,20 @@ class Mapper:
     """Streaming mapper over the port's towers.
 
     ``clip`` and ``sam`` must be in the config's working dtype
-    (``models.clip.dtype``) and on ``device`` (default: the card).  A
-    ``timer`` (utils.timing.StageTimer) records synchronised per-stage ms."""
+    (``models.clip.dtype``) and on ``device`` (default: the card).  Both
+    may be None when every frame comes with its FrameFeatures (the oracle
+    protocol); the feature width is then ``clip_variant``'s (default: the
+    configured CLIP type's).  A ``timer`` (utils.timing.StageTimer) records
+    synchronised per-stage ms."""
 
     def __init__(
         self,
         cfg: Config,
-        clip: clip_mod.CLIPVisual,
-        sam: sam_mod.SAM,
+        clip: Optional[clip_mod.CLIPVisual] = None,
+        sam: Optional[sam_mod.SAM] = None,
         device: DeviceLike = None,
         timer: Optional[StageTimer] = None,
+        clip_variant: Optional[clip_mod.CLIPVariant] = None,
     ):
         p = cfg.pipeline
         if p.merge_type not in ("paired", "sequential"):
@@ -78,17 +82,21 @@ class Mapper:
         self.device = resolve(device)
         dtype = dtype_of(cfg.models.clip.dtype)
         for name, model in (("clip", clip), ("sam", sam)):
+            if model is None:
+                continue
             w = next(model.parameters())
             if w.device.type != self.device.type:
                 raise ValueError(f"{name} tower is on {w.device}, the mapper on {self.device}")
-        if clip.patch_w.dtype != dtype or sam.dtype != dtype:
+        if (clip is not None and clip.patch_w.dtype != dtype) or (sam is not None and sam.dtype != dtype):
             raise ValueError(f"towers must be in the config dtype {dtype}")
         self.cfg = cfg
         self.clip = clip
         self.sam = sam
+        self.clip_variant = clip_variant or (clip.variant if clip is not None
+                                             else clip_mod.VARIANTS[cfg.models.clip.type])
         self.timer = timer
         self.grid = GridSpec.centered(p.voxel_size)
-        d = clip.variant.embed_dim
+        d = self.clip_variant.embed_dim
         self.scene = scene_mod.init_scene(self.grid, p.point_capacity, d, self.device)
         self.instances = inst_mod.empty_instances(p.instance_capacity, p.mask_point_capacity, d, self.device)
         self.keyframes: List[RGBDFrame] = []
@@ -124,6 +132,8 @@ class Mapper:
                 self.scene, pts, cols, valid, fcap=p.frame_voxel_capacity
             )
         if ff is None:
+            if self.clip is None or self.sam is None:
+                raise ValueError("a Mapper without towers needs the frame's FrameFeatures (ff)")
             extract_fn = extract_frame_features_tiered if p.extract_tiering else extract_frame_features
             sc = cfg.models.sam
             ff = extract_fn(
@@ -193,7 +203,7 @@ class Mapper:
                     self.scene.points(), self.scene.valid(), self.scene.count,
                     radius=1.0, min_neighbors=1000.0,
                 )
-            d = self.clip.variant.embed_dim
+            d = self.clip_variant.embed_dim
             kf = (
                 torch.stack(self._kf_feats)
                 if self._kf_feats

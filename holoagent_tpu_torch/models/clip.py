@@ -5,6 +5,8 @@ tower: token + position embeddings -> causal pre-LN transformer ->
 features at the <eot> position -> projection; its attention runs through
 kernel K2's causal mode on the card.
 
+``preprocess`` crops, resizes (``ops/resize.py``'s cubic, as
+``jax.image.resize``) and normalizes frames for the image tower.
 ``quantize_clip`` gives the int8 (W8A8) image tower: its blocks become
 ``blocks_q8`` (``transformer.QBlock``) and every block matmul runs through
 kernel K3.  The text tower stays float, as the reference's ``quantize_clip``
@@ -22,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import DeviceLike, generator, resolve
+from ..ops.resize import resize
 from . import transformer as tfm
 
 # open_clip / CLIP normalization constants
@@ -96,6 +99,19 @@ class CLIPText(nn.Module):
         self.ln_final_g = tfm.frozen(torch.ones(w, **kw))
         self.ln_final_b = tfm.frozen(torch.zeros(w, **kw))
         self.proj = tfm.frozen(torch.empty(w, variant.embed_dim, **kw))
+
+
+def preprocess(images: torch.Tensor, size: int = 224) -> torch.Tensor:
+    """Resize (B, H, W, 3) float [0,1] to (B, size, size, 3) and normalize:
+    the center square crop, ``jax.image.resize``'s antialiased Keys cubic
+    (``ops/resize.py``), then the CLIP mean and std, in the images' dtype."""
+    b, h, w, _ = images.shape
+    s = min(h, w)
+    y0, x0 = (h - s) // 2, (w - s) // 2
+    out = resize(images[:, y0 : y0 + s, x0 : x0 + s], (b, size, size, 3), "cubic")
+    mean = torch.tensor(IMAGE_MEAN, dtype=images.dtype, device=images.device)
+    std = torch.tensor(IMAGE_STD, dtype=images.dtype, device=images.device)
+    return (out - mean) / std
 
 
 def _init_visual_(model: CLIPVisual, gen: torch.Generator) -> None:

@@ -166,3 +166,13 @@ def extract_frame_features_tiered(
             clip_qmm,
         )
     return FrameFeatures(masks=masks, valid=valid, boxes=boxes, f_masks=f_masks, f_global=f_g)
+
+
+def per_pixel_features(ff: FrameFeatures, dtype=torch.float16) -> torch.Tensor:
+    """Materialize the (H, W, D) per-pixel feature image (the reference's
+    `outfeat`, sam_clip_feats_extractor.py:178-190): at each pixel, the
+    L2-normalized sum of F_p over masks covering it, summed in float32."""
+    m, h, w = ff.masks.shape
+    mk = ff.masks.reshape(m, h * w).float()
+    acc = _l2(mk.t() @ ff.f_masks.float())
+    return acc.reshape(h, w, -1).to(dtype)

@@ -1,6 +1,7 @@
-"""FSR query engine, fast path (counterpart of the JAX package's `query`
-subpackage)."""
+"""FSR query engine: fast hierarchical CLIP retrieval + slow VLM refinement
+(counterpart of the JAX package's `query` subpackage)."""
 
 from .engine import FSRQueryEngine
+from .oracle import OracleVLM, read_tag, tag_image
 from .parser import ParsedQuery, RuleParser
-from .vlm_backend import NullVLM, VLMBackend
+from .vlm_backend import ClipVLM, NullVLM, VLMBackend

@@ -10,18 +10,20 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import holoagent_tpu_torch
 from holoagent_tpu_torch import device as tdevice
-from holoagent_tpu_torch.apps import build_map
+from holoagent_tpu_torch.apps import build_map, eval_protocol, long_query_bench, query_bench
 from holoagent_tpu_torch.apps.common import load_models, tokenizer
 from holoagent_tpu_torch.config import from_dict
 from holoagent_tpu_torch.memory.hmsg import HMSGraph
 from holoagent_tpu_torch.memory.mapping import Mapper
 from holoagent_tpu_torch.models import clip as tclip
 from holoagent_tpu_torch.models import sam as tsam
+from holoagent_tpu_torch.perception.oracle import oracle_frame_features
 from holoagent_tpu_torch.query import FSRQueryEngine
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -106,6 +108,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError):
         FSRQueryEngine(HMSGraph(), text, tokenizer())
     assert FSRQueryEngine(HMSGraph(), text, tokenizer(), device="cpu").device.type == "cpu"
+    for entry in (lambda: eval_protocol.run_one(0), lambda: eval_protocol.run(seeds=1, neural=False),
+                  lambda: query_bench.run("no-graph", [], cfg), lambda: long_query_bench.run("no-graph", "", cfg),
+                  lambda: oracle_frame_features(np.zeros((4, 4), np.int32), np.zeros((4, 4), np.int32), ["a"], 8)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
     assert tdevice.resolve("cpu").type == "cpu"
 
 

@@ -165,8 +165,12 @@ def test_engine_hierarchy():
             assert [o.object_id for o in ot] == [o.object_id for o in oj], q
             np.testing.assert_allclose(res_t["scores"], res_j["scores"], atol=SCORE_TOL)
             assert set(res_t) == set(res_j) and res_t["Total_Time"] == res_t["FastMatching"] >= 0
-    with pytest.raises(NotImplementedError, match="slow path"):
-        te.query_hierarchy(INSTRUCTIONS[0], use_slow=True)
+    # the slow path without an image provider: the fast pick at top 5, as the reference's
+    for q in INSTRUCTIONS:
+        ft, rt, ot, res_t = te.query_hierarchy(q, use_slow=True)
+        fj, rj, oj, res_j = je.query_hierarchy(q, use_slow=True)
+        assert [o.object_id for o in ot] == [o.object_id for o in oj], q
+        assert set(res_t) == set(res_j) and res_t["Total_Time"] == res_t["FastMatching"] >= 0
 
 
 def test_engine_text_feats_cache(monkeypatch):
