@@ -48,10 +48,22 @@ Phases (any failure exits non-zero, with no result line):
      encoded by the visual tower (K2), every visual and text batch counted
      against K2's launches, the stage latencies printed; (g) the fast
      oracle row of apps.query_bench over (e)'s three_room graph with the
-     70 bilingual instructions, top-1 and recall@5 held at 1.0.  Per-stage
-     ms, frames/s or ms/keyframe, peak memory; the kernels' launch counts
-     and their device time inside each run.  Every K2 shape a path launched
-     that no case of phase 3 held gets its own case before the kernels line.
+     70 bilingual instructions, top-1 and recall@5 held at 1.0; (h) the
+     generative VLM served: first vlm-small's prefill of one admission wave
+     (8 text prompts, T = 128) through K2 held against the plain path, then
+     apps.serving_bench.run at vlm-small (8 slots, 16 requests of 32
+     tokens, chunks of 8, the 5-call slow chain), K2 held to one launch a
+     gpt layer a prefill call; (i) the generative slow path:
+     apps.query_bench.run --slow --vlm generative over (d)'s graph (vlm-small
+     over the ViT-L/14 visual tower, keyframes resident, the gallery padded
+     to 512, device-derived rates from (h)), K2 held to 24 launches a visual
+     batch, 12 a text batch, 8 a prefill; (j) apps.serving_bench.run at
+     llava-tinyllama (TinyLlama-1.1B's geometry: GQA, RoPE, SwiGLU; 8 slots,
+     8 requests of 16 tokens), K2 held at 0 (the arch has no kernel).
+     Per-stage ms, frames/s or ms/keyframe, peak memory; the kernels' launch
+     counts and their device time inside each run.  Every K2 shape a path
+     launched that no case of phase 3 held gets its own case before the
+     kernels line.
 Prints one JSON line of kernels, then the nvidia-smi line, then as the last
 line {"ok": true, "device": {...}}.
 """
@@ -76,7 +88,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from holoagent_tpu_torch.apps import build_map, eval_protocol, query_bench  # noqa: E402
+from holoagent_tpu_torch.apps import build_map, eval_protocol, query_bench, serving_bench  # noqa: E402
 from holoagent_tpu_torch.apps.common import load_models, tokenizer  # noqa: E402
 from holoagent_tpu_torch.config import from_dict  # noqa: E402
 from holoagent_tpu_torch.dataloader import SyntheticDataset, SyntheticScene  # noqa: E402
@@ -86,6 +98,7 @@ from holoagent_tpu_torch.memory.mapping import Mapper  # noqa: E402
 from holoagent_tpu_torch.models import clip as clip_mod  # noqa: E402
 from holoagent_tpu_torch.models import sam as sam_mod  # noqa: E402
 from holoagent_tpu_torch.models import transformer as tfm  # noqa: E402
+from holoagent_tpu_torch.models import vlm as vlm_mod  # noqa: E402
 from holoagent_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from holoagent_tpu_torch.ops import quant_matmul as qm  # noqa: E402
 from holoagent_tpu_torch.perception.extractor import extract_frame_features_tiered  # noqa: E402
@@ -821,30 +834,48 @@ def oracle_protocol(save_dir, tag):
     return dict(launches=launches, in_path=in_path)
 
 
+@contextlib.contextmanager
+def counting(calls):
+    """Count the calls the callers make to the visual tower, the padded text
+    batches and the VLM's prefill (module attributes, looked up at each
+    call): `calls` gets "image" (batch sizes), "text" (padded batches of 256
+    prompts) and "prefill" ((B, T) shapes)."""
+    encode_image, text_features, prefill = (clip_mod.encode_image, clip_mod.text_features_multi_template,
+                                            vlm_mod.prefill)
+
+    def counting_encode_image(visual, images, **kw):
+        calls["image"].append(int(images.shape[0]))
+        return encode_image(visual, images, **kw)
+
+    def counting_text_features(t, tok, labels, templates=clip_mod.TEMPLATES, **kw):
+        calls["text"].append(math.ceil(len(labels) * len(templates) / 256))
+        return text_features(t, tok, labels, templates, **kw)
+
+    def counting_prefill(vlm, embeddings, *a, **kw):
+        calls["prefill"].append(tuple(embeddings.shape[:2]))
+        return prefill(vlm, embeddings, *a, **kw)
+
+    clip_mod.encode_image, clip_mod.text_features_multi_template = counting_encode_image, counting_text_features
+    vlm_mod.prefill = counting_prefill
+    try:
+        yield calls
+    finally:
+        clip_mod.encode_image, clip_mod.text_features_multi_template, vlm_mod.prefill = (
+            encode_image, text_features, prefill)
+
+
 def slow_path(clip, sam, text, ds, cfg, graph_dir, tag):
     """(f) query_bench.run --slow --vlm clip over the graph path's graph:
     keyframes resident on the card, the gallery padded to 512 objects, the
     fixed queries.  Every visual-tower batch (24 K2 launches) and padded
     text batch (12) is counted where the callers ask for it, and K2's
     launches are held to that count."""
-    image_batches, text_batches = [], []
-    encode_image, text_features = clip_mod.encode_image, clip_mod.text_features_multi_template
-
-    def counting_encode_image(visual, images, **kw):
-        image_batches.append(int(images.shape[0]))
-        return encode_image(visual, images, **kw)
-
-    def counting_text_features(t, tok, labels, templates=clip_mod.TEMPLATES, **kw):
-        text_batches.append(math.ceil(len(labels) * len(templates) / 256))
-        return text_features(t, tok, labels, templates, **kw)
-
-    clip_mod.encode_image, clip_mod.text_features_multi_template = counting_encode_image, counting_text_features
-    try:
+    calls = collections.defaultdict(list)
+    with counting(calls):
         summary, wall, launches, in_path, peak = counted(lambda: query_bench.run(
             str(graph_dir), list(QUERIES), cfg, use_slow=True, vlm_kind="clip", dataset=ds, pad_gallery=512,
             models=(clip, sam, clip.variant, sam.variant, text), out_path=os.path.join(graph_dir, "slow.json")))
-    finally:
-        clip_mod.encode_image, clip_mod.text_features_multi_template = encode_image, text_features
+    image_batches, text_batches = calls["image"], calls["text"]
     pad_batches = math.ceil(512 / query_bench.ENCODE_CHUNK)
     log(f"[{tag}] query_bench --slow --vlm clip, {len(QUERIES)} queries + 1 warm-up, gallery "
         f"{summary['gallery_size']} objects: {wall:.3f} s, max_memory_allocated {peak / 2**30:.3f} GiB")
@@ -891,6 +922,115 @@ def oracle_query_path(clip, sam, text, cfg, run_dir, tag):
         f"{1e3 * summary['average_fastmatching']:.3f} ms, launches {launches}")
     check(summary["correctness"]["n_scored"] == len(instructions), f"{tag}: not every instruction was scored")
     check(summary["top1_acc"] == 1.0 and summary["recall_at_5"] == 1.0, f"{tag}: {summary['correctness']}")
+    return dict(launches=launches, in_path=in_path)
+
+
+# ---------------------------------------------------------------------------
+# (h)-(j): the generative VLM served, and the generative slow path
+# ---------------------------------------------------------------------------
+
+# vlm-small's prefill through K2 vs through its plain version, bf16: the
+# first-token logits per row within the towers' cosine limit, and the K/V
+# cache within two bf16 ulps, relative
+PREFILL_COS_MIN = 0.9998
+PREFILL_KV_REL = 2.0**-6
+
+
+def prefill_check(tag):
+    """vlm-small's prefill of one admission wave through K2 vs the plain
+    path at full width, bf16, with serving_bench's seeded weights: 8 prompts
+    of 65-128 random token ids at T = 128."""
+    vv = vlm_mod.VARIANTS["vlm-small"]
+    vlm = vlm_mod.init_vlm(vv, seed=0, dtype=torch.bfloat16, device="cuda")
+    gen = torch.Generator().manual_seed(SEED + 4)
+    ns = torch.randint(65, 129, (8,), generator=gen)
+    ns[0] = 128
+    ids = torch.randint(0, vv.vocab, (8, 128), generator=gen)
+    emb = vlm_mod.text_prompt_embeddings(vlm, ids.cuda(), ns.cuda())
+    out = {}
+    for impl in ("flash", "xla"):
+        n0 = fa.flash_attention.launches
+        cache = vlm_mod.init_cache(vv, 8, torch.bfloat16, "cuda")
+        logits, cache = vlm_mod.prefill(vlm, emb, ns, cache, impl=impl)
+        torch.cuda.synchronize()
+        out[impl] = (logits, cache, fa.flash_attention.launches - n0)
+    (lk, ck, nk), (lp, cp, npl) = out["flash"], out["xla"]
+    check(nk == vv.layers and npl == 0, f"{tag}: K2 launches {nk} through the kernel, {npl} through the plain path")
+    check(bool(torch.isfinite(lk).all()) and lk.shape == (8, vv.vocab), f"{tag}: prefill logits")
+    cos = F.cosine_similarity(lk, lp, dim=-1).min().item()
+    rel_k, rel_v = rel_err(ck.k[:, :, :128], cp.k[:, :, :128]), rel_err(ck.v[:, :, :128], cp.v[:, :, :128])
+    same = (lk.argmax(-1) == lp.argmax(-1)).sum().item()
+    log(f"[{tag}] vlm-small prefill, 8 prompts at T=128, K2 vs plain: first-token logits min cosine {cos:.6f}, "
+        f"K cache rel err {rel_k:.3e}, V {rel_v:.3e}; the same first token in {same} of 8 rows")
+    check(cos > PREFILL_COS_MIN, f"{tag}: prefill logits through K2 disagree with the plain path")
+    check(rel_k < PREFILL_KV_REL and rel_v < PREFILL_KV_REL, f"{tag}: the KV cache through K2 disagrees")
+    del vlm, out
+
+
+def serving_path(tag, variant, out_path, **kw):
+    """(h) / (j): apps.serving_bench.run, counted; K2 held to one launch a
+    gpt layer a prefill call (0 for the llama arch)."""
+    calls = collections.defaultdict(list)
+    with counting(calls):
+        res, wall, launches, in_path, peak = counted(lambda: serving_bench.run(variant=variant, out_path=out_path,
+                                                                              **kw))
+    vv = vlm_mod.VARIANTS[variant]
+    log(f"[{tag}] serving_bench.run({variant}, {kw}): {wall:.3f} s, max_memory_allocated {peak / 2**30:.3f} GiB")
+    for k, v in res.items():
+        log(f"[{tag}] {k}: {v}")
+    shapes = dict(sorted(collections.Counter(calls["prefill"]).items()))
+    per_call = vv.layers if vv.arch == "gpt" else 0
+    expect = {"flash_attention_2d": 0, "quant_matmul": 0, "flash_attention": per_call * len(calls["prefill"])}
+    log(f"[{tag}] prefill calls {len(calls['prefill'])} (B, T: {shapes}); launches {launches}, expected {expect}")
+    for name, n in expect.items():
+        check(launches[name] == n, f"{tag}: {name} launches {launches[name]} != {n}")
+    for key, (n, t) in in_path["flash_attention"].items():
+        log(f"[{tag}] flash_attention {key}: {n} launches, {t:.4f} ms in the run ({t / n:.4f} ms/launch)")
+    for k in ("decode_step_ms", "scan_decode_chunk_ms", "prefill_128_ms", "wall_tok_s"):
+        check(math.isfinite(res[k]) and res[k] > 0, f"{tag}: {k} = {res[k]}")
+    check(res["batcher_steps"] > 0 and res["device"] == torch.cuda.get_device_name(0), f"{tag}: batcher steps, device")
+    return dict(launches=launches, in_path=in_path, result=res, peak=peak)
+
+
+def generative_path(clip, sam, text, ds, cfg, graph_dir, rates, tag):
+    """(i) query_bench.run --slow --vlm generative over the graph path's
+    graph: vlm-small over the ViT-L/14 visual tower, keyframes resident, the
+    gallery padded to 512 objects, device-derived rates from (h).  K2 held
+    to 24 launches a visual batch, 12 a padded text batch and 8 a prefill."""
+    calls = collections.defaultdict(list)
+    with counting(calls):
+        summary, wall, launches, in_path, peak = counted(lambda: query_bench.run(
+            str(graph_dir), list(QUERIES), cfg, use_slow=True, vlm_kind="generative", dataset=ds, pad_gallery=512,
+            models=(clip, sam, clip.variant, sam.variant, text), rates_path=rates,
+            out_path=os.path.join(graph_dir, "slow_generative.json")))
+    vv = vlm_mod.VARIANTS["vlm-small"]
+    log(f"[{tag}] query_bench --slow --vlm generative, {len(QUERIES)} queries + 1 warm-up, gallery "
+        f"{summary['gallery_size']} objects: {wall:.3f} s (vlm-small's init included), max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB")
+    log(f"[{tag}] visual batches {len(calls['image'])} (B: {dict(sorted(collections.Counter(calls['image']).items()))}"
+        f"), padded text batches {sum(calls['text'])}, prefill calls {len(calls['prefill'])} "
+        f"(B, T: {dict(sorted(collections.Counter(calls['prefill']).items()))})")
+    for k in query_bench.STAGES:
+        log(f"[{tag}] average {k:18s} {1e3 * summary[f'average_{k.lower()}']:10.3f} ms")
+    log(f"[{tag}] Total_Time p50 {1e3 * summary['p50_total_time']:.3f} ms, p95 {1e3 * summary['p95_total_time']:.3f} ms; "
+        f"device-derived p50 {1e3 * summary['p50_device_derived']:.3f} ms, p95 "
+        f"{1e3 * summary['p95_device_derived']:.3f} ms ({summary['device_derivation']})")
+    work = {k: sum(r["vlm_work"][k] for r in summary["results"]) for k in summary["results"][0]["vlm_work"]}
+    log(f"[{tag}] vlm_work totals over the queries: {work}")
+    for r in summary["results"]:
+        log(f"[{tag}] {r['instruction']!r}: objects {r['objects']}, vlm_work {r['vlm_work']}, " + ", ".join(
+            f"{k} {1e3 * r[k]:.3f}" for k in query_bench.STAGES) + " ms")
+    expect = {"flash_attention_2d": 0, "quant_matmul": 0,
+              "flash_attention": clip.variant.v_layers * len(calls["image"])
+              + text.variant.t_layers * sum(calls["text"]) + vv.layers * len(calls["prefill"])}
+    log(f"[{tag}] launches {launches}, expected {expect}")
+    for name, n in expect.items():
+        check(launches[name] == n, f"{tag}: {name} launches {launches[name]} != {n}")
+    for key, (n, t) in in_path["flash_attention"].items():
+        log(f"[{tag}] flash_attention {key}: {n} launches, {t:.4f} ms in the run ({t / n:.4f} ms/launch)")
+    check(summary["gallery_size"] >= 512, f"{tag}: gallery of {summary['gallery_size']} objects")
+    check(work["waves"] > 0 and len(calls["prefill"]) > 0, f"{tag}: the slow path asked the VLM nothing")
+    check(all(r["Total_Time"] > 0 and r["objects"] for r in summary["results"]), f"{tag}: a query came back empty")
     return dict(launches=launches, in_path=in_path)
 
 
@@ -1015,6 +1155,14 @@ def main() -> int:
             clip, sam, text, ds, cfg, graph["graph_dir"], "slow")
         paths["(g) oracle retrieval: query_bench --oracle"] = oracle_query_path(
             clip, sam, text, cfg, os.path.join(oracle_dir, "three_room_seed0"), "oracle-query")
+        prefill_check("serving")
+        rates = os.path.join(tmp, "serving_bench.json")
+        paths["(h) serving: serving_bench vlm-small"] = serving_path(
+            "serving", "vlm-small", rates, batch=8, requests=16, new_tokens=32, chunk=8, chain_calls=5)
+        paths["(i) slow path: query_bench --slow --vlm generative"] = generative_path(
+            clip, sam, text, ds, cfg, graph["graph_dir"], rates, "generative")
+        paths["(j) serving: serving_bench llava-tinyllama"] = serving_path(
+            "serving-llama", "llava-tinyllama", None, batch=8, requests=8, new_tokens=16, chain_calls=1)
     hold_new_k2_shapes(cases, paths)
     print(json.dumps(kernels_line(cases, paths)))
     print(smi)

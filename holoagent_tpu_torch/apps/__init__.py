@@ -1,4 +1,4 @@
 """Counterpart of the JAX package's `apps` subpackage: model construction
 (``common``), ``build_map``, the oracle accuracy protocol
-(``eval_protocol``), ``eval_graph``, ``query_bench`` and
-``long_query_bench``."""
+(``eval_protocol``), ``eval_graph``, ``query_bench``, ``long_query_bench``
+and ``serving_bench``."""

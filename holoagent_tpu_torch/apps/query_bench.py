@@ -7,19 +7,24 @@ latency averages to all_results.json in the reference's schema.
 
 Modes: fast (default); fast with ``--oracle`` (GT one-hot gallery and text
 embeddings: the pipeline alone, needs ``--gt``); slow with ``--slow --vlm
-clip`` (ClipVLM over keyframes resident on the device).  ``--vlm
-generative`` waits for the VLM's port (ROADMAP.md item 4), and with it the
-reference's device-derived latency fields.
+clip`` (ClipVLM over keyframes resident on the device) or ``--slow --vlm
+generative`` (the on-slice generative VLM, vlm-small over the app's CLIP
+visual tower, served by ``ContinuousBatcher``).  With a VLM backend that
+keeps ``stats`` each query records its ``vlm_work`` (waves, prompt and new
+tokens), and ``--rates`` (the port's own ``serving_bench`` output) turns
+them into the reference's device-derived latency fields.
 
 Usage:
   python -m holoagent_tpu_torch.apps.query_bench --graph <graph_dir> \
       --instructions instructions.json [--config cfg.json] [--device cpu] \
-      [--slow --vlm clip] [--pad-gallery 512] [--gt scene_info.json [--oracle]]
+      [--slow --vlm clip|generative [--rates serving.json]] [--pad-gallery 512] \
+      [--gt scene_info.json [--oracle]]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 from pathlib import Path
 from typing import List
@@ -33,10 +38,12 @@ from ..eval import GTGraph
 from ..memory.hmsg import HMSGraph
 from ..memory.nodes import Object
 from ..models import clip as clip_mod
+from ..models import vlm as vlm_mod
 from ..ops.resize import resize
 from ..perception.oracle import onehot_label_feats
-from ..query import ClipVLM, FSRQueryEngine
+from ..query import ClipVLM, FSRQueryEngine, GenerativeVLM
 from ..query.parser import RuleParser
+from ..serving import ContinuousBatcher
 from .common import load_dataset, load_models, tokenizer
 
 STAGES = (
@@ -50,12 +57,16 @@ STAGES = (
 ENCODE_CHUNK = 64  # distractor crops a visual-tower batch
 
 
-def _make_vlm(kind: str, clip, text, tok):
+def _make_vlm(kind: str, clip, text, tok, cfg):
     if kind == "clip":
         return ClipVLM(clip, text, tok)
     if kind == "generative":
-        raise NotImplementedError("--vlm generative needs the generative VLM and its batcher, which are not "
-                                  "ported yet (ROADMAP.md item 4)")
+        # the VLM's vision tower is the app's CLIP visual tower (shared)
+        vv = vlm_mod.VARIANTS[getattr(cfg.models.vlm, "type", "") or "vlm-small"]
+        vv = dataclasses.replace(vv, clip_variant=clip.variant.name)
+        vlm = vlm_mod.init_vlm(vv, seed=2, dtype=torch.bfloat16, device=clip.patch_w.device)
+        return GenerativeVLM(ContinuousBatcher(vlm, clip, tokenizer=tok, max_batch=cfg.serving.max_batch),
+                             max_new_tokens=8)
     return None  # NullVLM default inside the engine
 
 
@@ -192,6 +203,43 @@ def _score_against_gt(results, gt, pad: float = 0.25):
     }
 
 
+def _device_derived(results, rates_path: str | None):
+    """Device-derived slow-path latency, the reference's formula.  Per
+    query:
+
+        t_device = FastMatching + prompt_tokens/128 * prefill_128_ms
+                   + ceil(new_tokens/decode_chunk) * decode_step_ms
+
+    with prefill_128_ms and decode_step_ms read from `rates_path`, the
+    port's own serving_bench output (never a TPU record).  Returns {} when
+    no VLM work was recorded or no rates file is given or exists."""
+    recs = [r for r in results if r.get("vlm_work", {}).get("waves")]
+    if not recs or not rates_path or not Path(rates_path).exists():
+        return {}
+    rates = json.loads(Path(rates_path).read_text())
+    pre_ms = rates.get("prefill_128_ms")
+    dec_ms = rates.get("decode_step_ms")
+    chunk = rates.get("decode_chunk", 8)
+    if pre_ms is None or dec_ms is None:
+        return {}
+    per_q = []
+    for r in results:
+        w = r.get("vlm_work") or {}
+        dev = (w.get("prompt_tokens", 0) / 128.0 * pre_ms + -(-w.get("new_tokens", 0) // chunk) * dec_ms) / 1e3
+        per_q.append(r["FastMatching"] + dev)
+    return {
+        "p50_device_derived": float(np.percentile(per_q, 50)),
+        "p95_device_derived": float(np.percentile(per_q, 95)),
+        "device_derivation": {
+            "prefill_128_ms": pre_ms,
+            "decode_step_ms": dec_ms,
+            "decode_chunk": chunk,
+            "formula": "FastMatching + prompt_tokens/128*prefill_128_ms + ceil(new_tokens/chunk)*decode_step_ms",
+            "rates_source": str(rates_path),
+        },
+    }
+
+
 def run(
     graph_dir: str,
     instructions: List[str],
@@ -206,6 +254,8 @@ def run(
     models=None,  # optional preloaded load_models tuple (clip, sam, cv, sv, text) on `device`
     oracle: bool = False,  # GT one-hot embeddings: pipeline-only retrieval row
     device: DeviceLike = None,
+    vlm=None,  # optional prebuilt slow-path backend (in place of _make_vlm(vlm_kind))
+    rates_path: str | None = None,  # serving_bench output for the device-derived fields
 ):
     """The instructions over the saved graph, on `device` (the card unless
     the caller asks for the CPU).  Returns the summary written to
@@ -237,7 +287,7 @@ def run(
 
     engine = FSRQueryEngine(
         graph, text, tok,
-        vlm=_make_vlm(vlm_kind, clip, text, tok) if use_slow else None,
+        vlm=(vlm if vlm is not None else _make_vlm(vlm_kind, clip, text, tok, cfg)) if use_slow else None,
         device=dev,
         image_provider=provider,
     )
@@ -248,8 +298,10 @@ def run(
         # caches warm-up (text features, kernel builds); the reference
         # benchmarks a long-lived warm process the same way
         engine.query_hierarchy(instructions[0], top_k=5, use_slow=use_slow, negative_labels=neg)
+    vlm_stats = getattr(engine.vlm, "stats", None) if use_slow else None
     results = []
     for q in instructions:
+        before = dict(vlm_stats) if vlm_stats is not None else None
         floor, rooms, objs, res = engine.query_hierarchy(q, top_k=5, use_slow=use_slow, negative_labels=neg)
         results.append({
             "instruction": q,
@@ -261,6 +313,8 @@ def run(
             **{k: res.get(k, 0.0) for k in STAGES},
             "scores": [float(s) for s in res.get("scores", [])],
         })
+        if before is not None:
+            results[-1]["vlm_work"] = {k: vlm_stats[k] - before[k] for k in before}
     totals = [r["Total_Time"] for r in results]
     correctness = _score_against_gt(results, GTGraph.from_json(gt_path)) if gt_path else None
     summary = {
@@ -271,6 +325,7 @@ def run(
         },
         "p50_total_time": float(np.percentile(totals, 50)) if totals else 0.0,
         "p95_total_time": float(np.percentile(totals, 95)) if totals else 0.0,
+        **_device_derived(results, rates_path),
         "gallery_size": len(graph.objects),
         **({"oracle_embeddings": True} if oracle else {}),
         **({"top1_acc": correctness["top1_acc"],
@@ -295,6 +350,7 @@ def main(argv=None):
     ap.add_argument("--slow", action="store_true")
     ap.add_argument("--vlm", default="clip", choices=("clip", "generative", "null"))
     ap.add_argument("--out", default=None)
+    ap.add_argument("--rates", default=None, help="serving_bench output: adds the device-derived latency fields")
     ap.add_argument("--pad-gallery", type=int, default=0)
     ap.add_argument("--gt", default=None, help="scene_info.json GT graph: adds top1/recall@5 fields")
     ap.add_argument("--oracle", action="store_true",
@@ -307,7 +363,8 @@ def main(argv=None):
             cfg = cfgmod.apply_override(cfg, ov)
     instructions = json.loads(Path(args.instructions).read_text())
     return run(args.graph, instructions, cfg, use_slow=args.slow, out_path=args.out, vlm_kind=args.vlm,
-               pad_gallery=args.pad_gallery, gt_path=args.gt, oracle=args.oracle, device=args.device)
+               pad_gallery=args.pad_gallery, gt_path=args.gt, oracle=args.oracle, device=args.device,
+               rates_path=args.rates)
 
 
 if __name__ == "__main__":

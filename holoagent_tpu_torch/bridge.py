@@ -23,6 +23,7 @@ from .memory.mapping import MappedScene
 from .memory.scene import SceneState
 from .models.clip import CLIPText, CLIPVariant, CLIPVisual
 from .models.sam import SAM, SAMVariant
+from .models.vlm import VLM, VLMVariant
 from .ops.voxel import GridSpec
 from .perception.extractor import FrameFeatures
 
@@ -98,6 +99,23 @@ def sam_from_jax(
     with ``{b, w_q8, w_s}`` linears) -> the port's SAM."""
     quant = "w_q8" in np_params["encoder"]["blocks"][0]["qkv"]
     return load_flat(SAM(variant, dtype=dtype, device=device, quant=quant), flatten(np_params))
+
+
+def vlm_from_jax(
+    np_params: Dict[str, Any], variant: VLMVariant, dtype=torch.float32, device: DeviceLike = None
+) -> VLM:
+    """The reference's VLM params (``init_vlm`` or ``convert_hf_llava`` tree,
+    either arch, with or without ``proj2``) -> the port's model.  The
+    reference stacks its blocks on a leading layer axis; every leaf keeps
+    its layout."""
+    params = dict(np_params)
+    stacked = params.pop("blocks")
+    flat = flatten(params)
+    for i in range(variant.layers):
+        for name, arr in stacked.items():
+            flat[f"blocks.{i}.{name}"] = np.asarray(arr)[i]
+    model = VLM(variant, dtype=dtype, device=device, proj_in=flat["proj_w"].shape[0], proj2="proj2_w" in flat)
+    return load_flat(model, flat)
 
 
 def _t(a, dtype, device) -> torch.Tensor:

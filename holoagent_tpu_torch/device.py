@@ -49,6 +49,17 @@ def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 
 
+def upload(a, device: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A host array as a tensor on `device`, without waiting for the card:
+    to a CUDA device it goes from pinned memory with ``non_blocking`` (a
+    plain ``torch.as_tensor(a, device="cuda")`` synchronises the stream,
+    which would drain a pipeline of queued device work)."""
+    t = torch.as_tensor(a, dtype=dtype)
+    if device.type != "cuda" or t.is_cuda:
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def generator(seed: int) -> torch.Generator:
     """Seeded CPU generator for random init (values are drawn on the CPU and
     moved, so a seed gives the same weights on every device)."""

@@ -4,4 +4,4 @@
 from .engine import FSRQueryEngine
 from .oracle import OracleVLM, read_tag, tag_image
 from .parser import ParsedQuery, RuleParser
-from .vlm_backend import ClipVLM, NullVLM, VLMBackend
+from .vlm_backend import ClipVLM, GenerativeVLM, NullVLM, VLMBackend

@@ -7,14 +7,16 @@ verification, gallery frame choice, per-image yes/no + best pick), and:
     device (verification by an image-text score threshold, frame choice by
     argmax); no generative model needed.  Images that are tensors on that
     device (resident keyframes) are stacked there: nothing is uploaded.
+  * GenerativeVLM — the on-slice generative model (``models/vlm.py``)
+    served by ``serving.ContinuousBatcher``: the reference's GPT-4V prompts
+    re-targeted at the local engine.  Resident keyframes are stacked on the
+    batcher's device, as ClipVLM stacks them.
   * NullVLM — accept-everything stub for latency testing of the fast path.
-
-The generative backend (``GenerativeVLM``) waits for the VLM's port
-(ROADMAP.md item 4).
 """
 
 from __future__ import annotations
 
+import re
 from typing import List, Optional, Protocol, Sequence, Tuple
 
 import numpy as np
@@ -52,6 +54,94 @@ class NullVLM:
 
     def detect_and_select_best(self, images, label):
         return [True] * len(images), 0 if len(images) else None
+
+
+def _first_index(text: str, n: int) -> int:
+    """The first number in a generated answer if it names one of n images,
+    else 0."""
+    m = re.findall(r"\d+", text)
+    return int(m[0]) if m and int(m[0]) < n else 0
+
+
+class GenerativeVLM:
+    """VLMBackend over the on-slice generative model served with continuous
+    batching (``serving.ContinuousBatcher``)."""
+
+    def __init__(self, batcher, max_new_tokens: int = 16):
+        self.batcher = batcher
+        self.max_new_tokens = max_new_tokens
+        # cumulative device-work accounting for the device-derived latency
+        # fields (apps/query_bench.py p50_device_derived): sequential wave
+        # count + token totals per wave
+        self.stats = {"waves": 0, "prompt_tokens": 0, "new_tokens": 0}
+
+    def _ask_many(self, calls) -> List[str]:
+        """Submit [(prompt, images | None), ...] together and drive the engine
+        until all finish: a call's per-image checks ride one continuous batch.
+        Images that are tensors on the batcher's device are stacked there;
+        anything else is uploaded."""
+        from ..serving.batcher import GenRequest
+
+        dev = self.batcher.device
+        reqs = []
+        for prompt, images in calls:
+            imgs = None
+            if images is not None:
+                imgs = torch.stack([torch.as_tensor(im, dtype=torch.float32, device=dev) for im in images])
+            reqs.append(self.batcher.submit(GenRequest(prompt, imgs, self.max_new_tokens)))
+        while not all(r._done.is_set() for r in reqs):
+            self.batcher.step()
+        self.stats["waves"] += 1
+        self.stats["prompt_tokens"] += sum(r.prompt_tokens for r in reqs)
+        self.stats["new_tokens"] += sum(r.generated for r in reqs)
+        return [r.result().lower() for r in reqs]
+
+    def _ask(self, prompt: str, images) -> str:
+        return self._ask_many([(prompt, images)])[0]
+
+    def detect_object(self, image, label) -> bool:
+        return "yes" in self._ask(f"is there a {label} in this image? answer yes or no.", [image])
+
+    def choose_frame(self, images, instruction):
+        if not len(images):
+            return None
+        out = self._ask(
+            f"which image best matches: {instruction}? answer with the image "
+            f"number between 0 and {len(images) - 1}.",
+            images,
+        )
+        return _first_index(out, len(images))
+
+    def detect_and_select_best(self, images, label):
+        if not len(images):
+            return [], None
+        calls = [(f"is there a {label} in this image? answer yes or no.", [im]) for im in images]
+        calls.append((
+            f"which image best matches: a clear view of the {label}? answer "
+            f"with the image number between 0 and {len(images) - 1}.",
+            list(images),
+        ))
+        outs = self._ask_many(calls)
+        return ["yes" in o for o in outs[:-1]], _first_index(outs[-1], len(images))
+
+    def rethink_wave(self, gallery, instruction, known_imgs, label):
+        """One continuous-batch wave carrying the gallery frame choice and
+        the object checks of the already-known candidates (anchor view,
+        CLIP-best frame).  Returns (choice | None, checks for known_imgs)."""
+        calls = []
+        if len(gallery):
+            calls.append((
+                f"which image best matches: {instruction}? answer with the "
+                f"image number between 0 and {len(gallery) - 1}.",
+                list(gallery),
+            ))
+        calls += [(f"is there a {label} in this image? answer yes or no.", [im]) for im in known_imgs]
+        outs = self._ask_many(calls) if calls else []
+        choice = None
+        if len(gallery):
+            choice = _first_index(outs[0], len(gallery))
+            outs = outs[1:]
+        return choice, ["yes" in o for o in outs]
 
 
 class ClipVLM:

@@ -1,7 +1,8 @@
 """The port stands alone: holoagent_tpu_torch and chip_smoke.py import
-neither JAX nor the JAX package (nor PyYAML, which the card machine lacks,
-outside the one function that reads a YAML config), and an entry point not
-asked for the CPU refuses to run without CUDA."""
+neither JAX nor the JAX package, nor transformers (the card machine has
+none; tests may use it for reference weights), nor PyYAML (which the card
+machine lacks) outside the one function that reads a YAML config; and an
+entry point not asked for the CPU refuses to run without CUDA."""
 
 import ast
 import os
@@ -16,19 +17,20 @@ import torch
 
 import holoagent_tpu_torch
 from holoagent_tpu_torch import device as tdevice
-from holoagent_tpu_torch.apps import build_map, eval_protocol, long_query_bench, query_bench
+from holoagent_tpu_torch.apps import build_map, eval_protocol, long_query_bench, query_bench, serving_bench
 from holoagent_tpu_torch.apps.common import load_models, tokenizer
 from holoagent_tpu_torch.config import from_dict
 from holoagent_tpu_torch.memory.hmsg import HMSGraph
 from holoagent_tpu_torch.memory.mapping import Mapper
 from holoagent_tpu_torch.models import clip as tclip
 from holoagent_tpu_torch.models import sam as tsam
+from holoagent_tpu_torch.models import vlm as tvlm
 from holoagent_tpu_torch.perception.oracle import oracle_frame_features
 from holoagent_tpu_torch.query import FSRQueryEngine
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = Path(holoagent_tpu_torch.__file__).resolve().parent
-FORBIDDEN = ("jax", "jaxlib", "holoagent_tpu", "yaml")
+FORBIDDEN = ("jax", "jaxlib", "holoagent_tpu", "yaml", "transformers")
 
 
 def _port_sources():
@@ -84,7 +86,7 @@ def test_imports_with_jax_blocked():
     )
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 35
+    assert int(r.stdout.strip()) >= 40
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -111,6 +113,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     for entry in (lambda: eval_protocol.run_one(0), lambda: eval_protocol.run(seeds=1, neural=False),
                   lambda: query_bench.run("no-graph", [], cfg), lambda: long_query_bench.run("no-graph", "", cfg),
                   lambda: oracle_frame_features(np.zeros((4, 4), np.int32), np.zeros((4, 4), np.int32), ["a"], 8)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
+    tv = tvlm.VARIANTS["test-tiny"]
+    for entry in (lambda: tvlm.init_vlm(tv), lambda: tvlm.init_cache(tv, 2), lambda: tvlm.VLM(tv),
+                  lambda: serving_bench.run("test-tiny")):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             entry()
     assert tdevice.resolve("cpu").type == "cpu"
