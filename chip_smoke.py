@@ -26,8 +26,9 @@ Phases (any failure exits non-zero, with no result line):
      route);
   4. towers: at full width, hold the SAM and CLIP encoders through the
      kernels against the same encoders through the plain versions, in bf16
-     and as W8A8 towers (CLIP in both qmm modes), and the CLIP ViT-L/14 text
-     tower (features of the SCANNET20 prompts);
+     and as W8A8 towers (CLIP in both qmm modes), the CLIP ViT-L/14 text
+     tower (features of the SCANNET20 prompts), and SAM vit_h's encoder in
+     bf16 and W8A8;
   5. main paths, each with every launch count set to 0 just before it and
      read just after: Mapper.run + finalize over posed 640x480 frames of the
      synthetic three-room scene, SAM vit_b + CLIP ViT-L/14 from a seeded
@@ -59,11 +60,22 @@ Phases (any failure exits non-zero, with no result line):
      to 512, device-derived rates from (h)), K2 held to 24 launches a visual
      batch, 12 a text batch, 8 a prefill; (j) apps.serving_bench.run at
      llava-tinyllama (TinyLlama-1.1B's geometry: GQA, RoPE, SwiGLU; 8 slots,
-     8 requests of 16 tokens), K2 held at 0 (the arch has no kernel).
+     8 requests of 16 tokens), K2 held at 0 (the arch has no kernel);
+     (k) the reference's operating point: Mapper.run + finalize as (b) with
+     SAM vit_h (head dim 80: K1's second instantiation) and both towers
+     W8A8, launches derived from the towers' depths and held; (l) batched
+     extraction: the bf16 Mapper untiered at extract_frames_per_dispatch 1,
+     2, 2 and 1 in turns (the same scene; each frame's batched
+     FrameFeatures held against its per-frame ones), then the W8A8 towers'
+     extract_frames_batched over the keyframes in pairs; (m) (e)'s
+     three_room oracle frames through a Mapper with the hierarchical fold,
+     its state saved and loaded on the card (every tensor equal), and a
+     state saved without coarse keys reloaded with them recomputed (equal
+     to recompute_coarse_keys; to the live sets off the cell faces).
      Per-stage ms, frames/s or ms/keyframe, peak memory; the kernels' launch
-     counts and their device time inside each run.  Every K2 shape a path
-     launched that no case of phase 3 held gets its own case before the
-     kernels line.
+     counts and their device time inside each run.  Every K1, K2 and K3
+     shape a path launched that no case of phase 3 held gets its own case
+     before the kernels line.
 Prints one JSON line of kernels, then the nvidia-smi line, then as the last
 line {"ok": true, "device": {...}}.
 """
@@ -93,6 +105,9 @@ from holoagent_tpu_torch.apps.common import load_models, tokenizer  # noqa: E402
 from holoagent_tpu_torch.config import from_dict  # noqa: E402
 from holoagent_tpu_torch.dataloader import SyntheticDataset, SyntheticScene  # noqa: E402
 from holoagent_tpu_torch.eval.instruction_sets import three_room_instructions  # noqa: E402
+from holoagent_tpu_torch.memory import checkpoint as ckpt_mod  # noqa: E402
+from holoagent_tpu_torch.memory import instances as inst_mod  # noqa: E402
+from holoagent_tpu_torch.memory import mapping as mapping_mod  # noqa: E402
 from holoagent_tpu_torch.memory.hmsg import HMSGraph  # noqa: E402
 from holoagent_tpu_torch.memory.mapping import Mapper  # noqa: E402
 from holoagent_tpu_torch.models import clip as clip_mod  # noqa: E402
@@ -101,7 +116,10 @@ from holoagent_tpu_torch.models import transformer as tfm  # noqa: E402
 from holoagent_tpu_torch.models import vlm as vlm_mod  # noqa: E402
 from holoagent_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from holoagent_tpu_torch.ops import quant_matmul as qm  # noqa: E402
-from holoagent_tpu_torch.perception.extractor import extract_frame_features_tiered  # noqa: E402
+from holoagent_tpu_torch.ops import voxel as voxel_mod  # noqa: E402
+from holoagent_tpu_torch.ops.compact import I32_MAX  # noqa: E402
+from holoagent_tpu_torch.perception.extractor import FrameFeatures, extract_frame_features_tiered  # noqa: E402
+from holoagent_tpu_torch.perception.oracle import oracle_frame_features  # noqa: E402
 from holoagent_tpu_torch.query import ClipVLM, FSRQueryEngine  # noqa: E402
 from holoagent_tpu_torch.utils.labels import DEFAULT_ROOM_TYPES, SCANNET_LABELS_20  # noqa: E402
 from holoagent_tpu_torch.utils.timing import StageTimer  # noqa: E402
@@ -235,10 +253,10 @@ def hold(name: str, out, ref, mutants) -> dict:
     return a
 
 
-def k1_case(name, b, heads, g, gen):
+def k1_case(name, b, heads, g, gen, d=64):
     """One K1 shape: q, k, v as the (B, heads, N, D) views of one (B, N, 3C)
     projection that _attention_2d makes, bias (B*heads, N, g) f32."""
-    n, d = g * g, 64
+    n = g * g
     bh = b * heads
     qkv = torch.randn(b, n, 3 * heads * d, generator=gen).to("cuda", torch.bfloat16)
     q, k, v = qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
@@ -255,17 +273,15 @@ def k1_case(name, b, heads, g, gen):
         ("bias_h dropped on one query tile", fa.flash_attention_2d_ref(q, k, v, no_bias_h, bias_w, (g, g))),
         ("bias_w dropped on one query tile", fa.flash_attention_2d_ref(q, k, v, bias_h, no_bias_w, (g, g))),
     ])
-    if fa.k1_route(g, g) == "resident":
-        p = fa.resident_plan(bh, n, 2 * g)
-        grid = p["blocks_per_head"] * bh
-        res["plan"] = dict(p, kernel="resident", grid=grid, waves=grid / (p["blocks_per_sm"] * p["sms"]))
+    if fa.k1_route(g, g, d) == "resident":
+        res["plan"] = resident_plan_report(fa.resident_plan(bh, n, 2 * g, d=d), bh)
     else:
-        p = fa.global_plan(bh, n)
+        p = fa.global_plan(bh, n, d=d)
         res["plan"] = dict(p, kernel="global (TMA + wgmma)", waves=p["grid"] / (p["blocks_per_sm"] * p["sms"]))
     mask = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(b, heads, n, n).to(torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     res.update(
-        kernel="flash_attention_2d", key=(bh, g, g), name=name,
+        kernel="flash_attention_2d", key=(b, heads, g, g, d), name=name,
         shape=f"B={b} H={heads} N={n} h=w={g} D={d} packed qkv bf16",
         ms=time_ms(lambda: fa.flash_attention_2d(q, k, v, bias_h, bias_w, (g, g))),
         plain_ms=time_ms(lambda: fa.flash_attention_2d_ref(q, k, v, bias_h, bias_w, (g, g)), samples=5, reps=2),
@@ -313,11 +329,7 @@ def k2_case(name, b, h, t, causal, gen, packed=False):
               f"peak, its output is {res['out_bytes']}: the wrapper copied q, k or v")
     route = fa.k2_route(t, causal)
     if route == "resident":
-        p = fa.resident_plan(b * h, t, causal=causal)
-        grid = p["blocks_per_head"] * b * h
-        regs, smem = p["blocks_by_regs"], p["blocks_by_smem"]
-        limit = "registers and shared memory alike" if regs == smem else "registers" if regs < smem else "shared memory"
-        res["plan"] = dict(p, kernel="resident", grid=grid, waves=grid / (p["blocks_per_sm"] * p["sms"]), limit=limit)
+        res["plan"] = resident_plan_report(fa.resident_plan(b * h, t, causal=causal), b * h)
     else:
         p = fa.global_plan(b * h, t, rel_pos=False)
         res["plan"] = dict(p, kernel="global (TMA + wgmma, no bias)", waves=p["grid"] / (p["blocks_per_sm"] * p["sms"]))
@@ -333,6 +345,15 @@ def k2_case(name, b, h, t, causal, gen, packed=False):
     res["bound_ms"], res["bound_by"] = bound(4.0 * pairs * d * b * h, 4 * b * h * t * d * 2, PEAK_BF16_FLOPS)
     res["ratio_to_library"] = res["ms"] / res["library_ms"]
     return res
+
+
+def resident_plan_report(p, bh) -> dict:
+    """The resident kernel's plan for `bh` heads with its grid, waves and
+    what limits its blocks an SM."""
+    grid = p["blocks_per_head"] * bh
+    regs, smem = p["blocks_by_regs"], p["blocks_by_smem"]
+    limit = "registers and shared memory alike" if regs == smem else "registers" if regs < smem else "shared memory"
+    return dict(p, kernel="resident", grid=grid, waves=grid / (p["blocks_per_sm"] * p["sms"]), limit=limit)
 
 
 def causal_ref_shifted(q, k, v):
@@ -406,7 +427,8 @@ def k3_phase():
     M.  CLIP ViT-L/14: M = 257 * (2 * tier + 1); qkv, out proj, fc1, fc2;
     fc1 also with f32 output (the qmm="xla" path keeps it f32 into the
     GELU).  SAM vit_b: M = 4096 (global) and 4900 (25 windows); qkv, proj,
-    lin1, lin2; lin1 also with f32 output."""
+    lin1, lin2; lin1 also with f32 output.  SAM vit_h: qkv and proj at M =
+    4900 and 4096, lin1 (f32 output) and lin2 at M = 4096."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     bf, f32 = torch.bfloat16, torch.float32
     cases = []
@@ -419,15 +441,27 @@ def k3_phase():
         for k, n in ((768, 2304), (768, 768), (768, 3072), (3072, 768)):
             cases.append(k3_case(f"k3_sam_{where}_{k}x{n}", m, k, n, bf, bf, gen))
         cases.append(k3_case(f"k3_sam_{where}_768x3072_f32", m, 768, 3072, bf, f32, gen))
+    # SAM vit_h (width 1280): qkv and proj on the windows (M = 4900) and the
+    # global layers (M = 4096); the MLP on the whole grid (M = 4096), lin1
+    # kept f32 into the GELU
+    for m, where in ((4900, "windows"), (4096, "global")):
+        for k, n in ((1280, 3840), (1280, 1280)):
+            cases.append(k3_case(f"k3_vit_h_{where}_{k}x{n}", m, k, n, bf, bf, gen))
+    cases.append(k3_case("k3_vit_h_mlp_1280x5120_f32", 4096, 1280, 5120, bf, f32, gen))
+    cases.append(k3_case("k3_vit_h_mlp_5120x1280", 4096, 5120, 1280, bf, bf, gen))
     cases.append(k3_case("k3_ragged_m77", 77, 1024, 1024, bf, bf, gen))
     cases.append(k3_case("k3_ragged_m77_f32in", 77, 1024, 1024, f32, f32, gen))
     for c in cases:
-        log(f"[kernel] {c['name']:28s} {c['shape']:32s} {c['max_ulps']} ulps ({c['outputs_differing']} outputs "
-            f"differ, max abs err {c['max_abs_err']:.3e}); mutants rejected at "
-            f"{', '.join(f'{v} ulps' for v in c['mutant_ulps'].values())}; "
-            f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  _int_mm {c['library_ms']:.4f} ms  "
-            f"({c['ratio_to_library']:.2f}x)  bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+        log_k3_case(c)
     return cases
+
+
+def log_k3_case(c) -> None:
+    log(f"[kernel] {c['name']:28s} {c['shape']:32s} {c['max_ulps']} ulps ({c['outputs_differing']} outputs "
+        f"differ, max abs err {c['max_abs_err']:.3e}); mutants rejected at "
+        f"{', '.join(f'{v} ulps' for v in c['mutant_ulps'].values())}; "
+        f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  _int_mm {c['library_ms']:.4f} ms  "
+        f"({c['ratio_to_library']:.2f}x)  bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
 
 
 def kernel_phases():
@@ -435,6 +469,9 @@ def kernel_phases():
     cases = [
         k1_case("k1_global", 1, 12, 64, gen),  # vit_b global layers: 64x64 grid, 12 heads
         k1_case("k1_window", 25, 12, 14, gen),  # vit_b windows: 25 windows x 12 heads, 14x14
+        # vit_h (width 1280, 16 heads): head dim 80, the same grids
+        k1_case("k1_vit_h_global", 1, 16, 64, gen, d=80),
+        k1_case("k1_vit_h_window", 25, 16, 14, gen, d=80),
     ]
     for tier in (16, 32, 64):  # CLIP ViT-L/14 crop stack: B = 2*tier + 1
         cases.append(k2_case(f"k2_clip_tier{tier}", 2 * tier + 1, 16, 257, False, gen, packed=True))
@@ -560,6 +597,33 @@ def q8_tower_checks(qclip, qsam, frame, e_bf16, f_bf16):
     check(cos_sam > 0.9994 and rel_sam < 0.06, "W8A8 SAM encoder through the kernels disagrees with the plain versions")
     for qmm, c in cos_clip.items():
         check(c > 0.9995, f"W8A8 CLIP qmm={qmm} through the kernels disagrees with the plain versions")
+
+
+def vit_h_tower_checks(sam_h, qsam_h, frame):
+    """SAM vit_h's encoder at full width (32 layers, width 1280, 16 heads:
+    head dim 80), bf16 and W8A8, through the kernels (K1 at D = 80 on both
+    routes; K3 at vit_h's widths) against the same encoder through the
+    plain versions, held at vit_b's limits."""
+    x, _ = tower_inputs(sam_h, frame)
+    v = sam_h.variant
+    n1 = fa.flash_attention_2d.launches
+    e_k = sam_mod.encode_image(sam_h.encoder, x, v, impl="flash").float()
+    check(fa.flash_attention_2d.launches - n1 == v.depth, "vit_h encoder: K1 launches")
+    e_p = sam_mod.encode_image(sam_h.encoder, x, v, impl="xla").float()
+    cos_b, rel_b = cosine(e_k, e_p), rel_err(e_k, e_p)
+    n1, n3 = fa.flash_attention_2d.launches, qm.quant_matmul.launches
+    q_k = sam_mod.encode_image(qsam_h.encoder, x, v, impl="flash").float()
+    check(fa.flash_attention_2d.launches - n1 == v.depth and qm.quant_matmul.launches - n3 == 4 * v.depth,
+          "W8A8 vit_h encoder: K1 and K3 launches")
+    with k3_plain():
+        q_p = sam_mod.encode_image(qsam_h.encoder, x, v, impl="xla").float()
+    cos_q, rel_q = cosine(q_k, q_p), rel_err(q_k, q_p)
+    log(f"[towers] SAM vit_h embedding (head dim {v.width // v.heads}) flash vs plain: cosine {cos_b:.6f}, rel err "
+        f"{rel_b:.3e}; W8A8 through kernels vs plain: cosine {cos_q:.6f}, rel err {rel_q:.3e}; W8A8 vs bf16: cosine "
+        f"{cosine(q_k, e_k):.6f}")
+    # vit_b's limits (tower_checks, q8_tower_checks)
+    check(cos_b > 0.9998 and rel_b < 0.03, "SAM vit_h encoder through K1 disagrees with the plain version")
+    check(cos_q > 0.9994 and rel_q < 0.06, "W8A8 SAM vit_h encoder through the kernels disagrees with the plain versions")
 
 
 # about 3x the difference read on an H100 (1 - cosine 4.9e-5)
@@ -1034,16 +1098,286 @@ def generative_path(clip, sam, text, ds, cfg, graph_dir, rates, tag):
     return dict(launches=launches, in_path=in_path)
 
 
-def hold_new_k2_shapes(cases, paths):
-    """A case (packed, as _attend launches it) for every K2 shape a path
-    launched that no case held."""
+# ---------------------------------------------------------------------------
+# (k)-(m): vit_h at the reference's operating point, batched extraction, the
+# hierarchical fold and mapper-state checkpoints
+# ---------------------------------------------------------------------------
+
+
+def launches_a_keyframe(clip, sam) -> dict:
+    """K1, K2 and K3 launches one keyframe's extraction makes: one K1 a SAM
+    layer (all windows of a windowed layer in one launch), one K2 a CLIP
+    layer, and with int8 towers one K3 for each of a layer's four linears."""
+    depth, layers = sam.variant.depth, clip.variant.v_layers
+    return {"flash_attention_2d": depth, "flash_attention": layers,
+            "quant_matmul": 4 * (depth if sam.quant else 0) + 4 * (layers if clip.quant else 0)}
+
+
+def operating_point_path(qclip, qsam_h, ds, cfg, tag):
+    """(k) The reference's own operating point, SAM vit_h W8A8 (bench.py's
+    "extract full64 vit_h" and vit_h_fps): Mapper.run + finalize at
+    config/synthetic_tpu_3room.yaml's settings with sam.type vit_h and both
+    towers int8."""
+    expect = launches_a_keyframe(qclip, qsam_h)
+    log(f"[{tag}] SAM {qsam_h.variant.name} ({qsam_h.variant.depth} layers, {len(qsam_h.variant.global_idx)} global, "
+        f"width {qsam_h.variant.width}, head dim {qsam_h.variant.width // qsam_h.variant.heads}), CLIP "
+        f"{qclip.variant.name}, both W8A8: expected launches a keyframe {expect}")
+    return main_path(qclip, qsam_h, ds, cfg, tag, expect)
+
+
+@contextlib.contextmanager
+def recording(out):
+    """Record every FrameFeatures the Mapper's extraction returns, frame by
+    frame, into `out` (the mapping module's names, looked up at each call)."""
+    single, batched = mapping_mod.extract_frame_features, mapping_mod.extract_frames_batched
+
+    def rec_single(*a, **kw):
+        out.append(single(*a, **kw))
+        return out[-1]
+
+    def rec_batched(*a, **kw):
+        ffb = batched(*a, **kw)
+        out.extend(FrameFeatures(*(x[j] for x in ffb)) for j in range(ffb.valid.shape[0]))
+        return ffb
+
+    mapping_mod.extract_frame_features, mapping_mod.extract_frames_batched = rec_single, rec_batched
+    try:
+        yield out
+    finally:
+        mapping_mod.extract_frame_features, mapping_mod.extract_frames_batched = single, batched
+
+
+ALLOC_STATS = ("num_device_alloc", "num_device_free", "num_alloc_retries")
+
+
+def batched_path(clip, sam, ds, cfg_dict, tag):
+    """(l) Batched extraction: Mapper.run + finalize in bf16 with
+    extract_tiering off, at extract_frames_per_dispatch 1, 2, 2 and 1 (turns,
+    so the host's drift does not read as the batch size's effect), each
+    counted, with the caching allocator's device allocations and frees in
+    the run.  The scene is the same; each frame's batched FrameFeatures are
+    held against its per-frame ones: masks and validity equal (the encoders'
+    rows do not depend on the batch: read equal on the H100), features at
+    the towers' cosine gate."""
+    out, ffs, mss = {}, {}, {}
+    for turn, bsz in enumerate((1, 2, 2, 1)):
+        d = copy.deepcopy(cfg_dict)
+        d["pipeline"].update(extract_tiering=False, extract_frames_per_dispatch=bsz)
+        lcfg = from_dict(d)
+        keyframes = list(range(0, len(ds), lcfg.pipeline.skip_frames))
+        kw = Mapper(lcfg, clip, sam)._extract_kw()
+        first = [torch.as_tensor(ds[i].rgb, dtype=torch.float32).cuda() for i in keyframes[:bsz]]
+        if bsz == 1:  # warm-up at this batch size, outside the counted run
+            mapping_mod.extract_frame_features(clip, sam, first[0], **kw)
+        else:
+            mapping_mod.extract_frames_batched(clip, sam, torch.stack(first), **kw)
+        timer = StageTimer("cuda")
+        recorded = []
+        a0 = torch.cuda.memory_stats()
+        with recording(recorded):
+            ms, wall, launches, in_path, peak = counted(lambda: Mapper(lcfg, clip, sam, timer=timer).run(ds))
+        alloc = {k: torch.cuda.memory_stats().get(k, 0) - a0.get(k, 0) for k in ALLOC_STATS}
+        nf = len(keyframes)
+        calls = math.ceil(nf / bsz)
+        run = f"{tag}-{bsz}, turn {turn + 1}"
+        extract_ms = timer.ms["mask"] + timer.ms["clip"]
+        log(f"[{run}] {nf} keyframes in {wall:.3f} s: {nf / wall:.3f} frames/s (finalize included); extraction "
+            f"{extract_ms / nf:.3f} ms/keyframe in {calls} calls; allocator in the run {alloc}")
+        report(run, nf, wall, timer, launches, in_path, peak, {})
+        per_call = launches_a_keyframe(clip, sam)
+        for k, n in per_call.items():
+            check(launches[k] == n * calls, f"{run}: {k} launches {launches[k]} != {n} x {calls} calls")
+        check(len(recorded) == nf, f"{run}: {len(recorded)} extracted frames")
+        mss.setdefault(bsz, ms)
+        ffs.setdefault(bsz, recorded)
+        out[f"(l) batched extraction, bf16 untiered, extract_frames_per_dispatch {bsz}, turn {turn + 1}"] = dict(
+            launches=launches, in_path=in_path, nf=nf)
+    check(int(mss[1].scene.num) == int(mss[2].scene.num), f"{tag}: scene rows {int(mss[1].scene.num)} at bsz 1, "
+          f"{int(mss[2].scene.num)} at bsz 2")
+    for j, (a, b) in enumerate(zip(ffs[1], ffs[2])):
+        flipped = int((a.masks != b.masks).sum())
+        both = a.valid & b.valid
+        cos_m = F.cosine_similarity(a.f_masks[both], b.f_masks[both], dim=-1).min().item()
+        cos_g = F.cosine_similarity(a.f_global, b.f_global, dim=0).item()
+        diff = (a.f_masks - b.f_masks).abs().max().item()
+        log(f"[{tag}] keyframe {j}: batched vs per-frame: valid masks {int(a.valid.sum())} / {int(b.valid.sum())}, "
+            f"{flipped} of {a.masks.numel()} mask pixels differ, f_masks min cosine {cos_m:.6f} (max abs diff "
+            f"{diff:.3e}), f_global cosine {cos_g:.6f}")
+        check(torch.equal(a.valid, b.valid) and flipped == 0, f"{tag}: keyframe {j}: masks or validity differ")
+        check(cos_m > 0.9998 and cos_g > 0.9998, f"{tag}: keyframe {j}: batched features disagree")
+    log(f"[{tag}] scene rows {int(mss[1].scene.num)} at both batch sizes; valid instances "
+        f"{int(mss[1].instances.num())} / {int(mss[2].instances.num())}")
+    return out
+
+
+def batched_w8a8_extraction(qclip, qsam, ds, cfg, mapper_feats, tag):
+    """(l) W8A8 batched extraction: extract_frames_batched over the
+    keyframes in pairs with the int8 towers (K3 at twice the rows of every
+    tower linear), counted; f_global held against the W8A8 Mapper's."""
+    kw = Mapper(cfg, qclip, qsam)._extract_kw()
+    frames = [torch.as_tensor(ds[i].rgb, dtype=torch.float32).cuda() for i in range(0, len(ds), cfg.pipeline.skip_frames)]
+    pairs = [torch.stack(frames[i : i + 2]) for i in range(0, len(frames), 2)]
+    mapping_mod.extract_frames_batched(qclip, qsam, pairs[0], **kw)  # warm-up
+    ffs, wall, launches, in_path, peak = counted(
+        lambda: [mapping_mod.extract_frames_batched(qclip, qsam, p, **kw) for p in pairs])
+    nf = len(frames)
+    log(f"[{tag}] {nf} keyframes in {len(pairs)} pairs in {wall:.3f} s: {1e3 * wall / nf:.3f} ms/keyframe, "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB, launches {launches}")
+    for name, runs in in_path.items():
+        for key, (n, t) in runs.items():
+            log(f"[{tag}] {name} {key}: {n} launches, {t:.4f} ms in the run ({t / n:.4f} ms/launch)")
+    for k, n in launches_a_keyframe(qclip, qsam).items():
+        check(launches[k] == n * len(pairs), f"{tag}: {k} launches {launches[k]} != {n} x {len(pairs)} calls")
+    f_g = torch.cat([ff.f_global for ff in ffs])
+    check(bool(torch.isfinite(f_g).all()) and f_g.shape == mapper_feats.shape, f"{tag}: f_global")
+    cos = F.cosine_similarity(f_g, mapper_feats.float(), dim=-1).min().item()
+    log(f"[{tag}] f_global, batched W8A8 vs the W8A8 Mapper's: min cosine {cos:.6f}")
+    check(cos > 0.9994, f"{tag}: batched W8A8 f_global disagrees with the Mapper's")
+    return dict(launches=launches, in_path=in_path, nf=nf)
+
+
+# (e)'s configuration (eval_protocol.run_one's), with the hierarchical fold
+HIER_CONFIG = {
+    "main": {"dataset": "synthetic"},
+    "pipeline": {"voxel_size": 0.08, "grid_resolution": 0.08, "point_capacity": 1 << 16, "mask_point_capacity": 4096,
+                 "instance_capacity": 64, "skip_frames": 1, "merge_type": "hierarchical"},
+}
+
+
+def hierarchical_path(state_dir, tag):
+    """(m) (e)'s three_room oracle frames (GT masks, one-hot features, no
+    towers) through a Mapper with merge_type "hierarchical", counted; then
+    its state saved, loaded on the card and held equal tensor for tensor;
+    then the same state saved without the coarse keys and signatures,
+    reloaded with them recomputed from the scene (held equal to
+    recompute_coarse_keys on the live state, and to the live sets wherever
+    a row's mean lies inside its own cell).
+
+    The live sets hold each pixel's cell; the recomputed ones each row's
+    mean's cell.  Where a surface lies on a cell face (a wall on a grid
+    plane), the mean of points that floor() put in one cell can round into
+    its neighbour, and that instance's recomputed set differs from its live
+    one by those rows; the reference recomputes the same way."""
+    make_scene, _, n_frames = eval_protocol.LAYOUTS["three_room"]
+    scene = make_scene(SyntheticScene)
+    ds = SyntheticDataset(scene=scene, num_frames=n_frames, hw=(240, 320), seed=0, gaze_heights=(0.8, 2.2))
+    labels = scene.labels()
+    cv = clip_mod.VARIANTS["test-tiny"]
+    t0 = time.perf_counter()
+    frames = [(ds[i], ds.gt(i)) for i in range(len(ds))]
+    log(f"[{tag}] {len(frames)} three_room frames at 240x320 rendered in {time.perf_counter() - t0:.3f} s (set-up)")
+    cfg = from_dict(HIER_CONFIG)
+    timer = StageTimer("cuda")
+
+    def run():
+        m = Mapper(cfg, timer=timer, clip_variant=cv)
+        for frame, (inst, lab) in frames:
+            with timer.stage("oracle"):
+                ff = oracle_frame_features(inst, lab, labels, cv.embed_dim, max_masks=16)
+            m.process_frame(frame, ff=ff)
+            heights.append(len(m._hier_slots))
+        return m.finalize()
+
+    heights = []
+    ms, wall, launches, in_path, peak = counted(run)
+    log(f"[{tag}] hierarchical fold over {len(frames)} frames + finalize: {wall:.3f} s, max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB, launches {launches}; partial sets resident at most {max(heights)}")
+    report(tag, len(frames), wall, timer, launches, in_path, peak, {name: 0 for name in WRAPPERS})
+    n_inst = int(ms.instances.num())
+    log(f"[{tag}] scene rows {int(ms.scene.num)}, valid instances {n_inst}")
+    check(n_inst >= 1 and bool(torch.isfinite(ms.instance_feats).all()), f"{tag}: {n_inst} valid instances")
+    path = os.path.join(state_dir, "mapper_state.pt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt_mod.save_mapper_state(path, ms.scene, ms.instances)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene_l, inst_l = ckpt_mod.load_mapper_state(path)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    check(scene_l.grid == ms.scene.grid, f"{tag}: reloaded grid")
+    for live, back in ((ms.scene, scene_l), (ms.instances, inst_l)):
+        for name, x in back._asdict().items():
+            if name != "grid":
+                y = getattr(live, name)
+                check(x.is_cuda and x.dtype == y.dtype and torch.equal(x, y), f"{tag}: reloaded {name} differs")
+    stale = torch.load(path, weights_only=True)
+    for name in ("ckeys", "ccount", "dsig"):
+        del stale["instances"][name]
+    stale_path = os.path.join(state_dir, "mapper_state_no_coarse_keys.pt")
+    torch.save(stale, stale_path)
+    t0 = time.perf_counter()
+    _, inst_b = ckpt_mod.load_mapper_state(stale_path)
+    torch.cuda.synchronize()
+    t_backfill = time.perf_counter() - t0
+    live = ms.instances
+    recomputed = inst_mod.recompute_coarse_keys(ms.scene, live)
+    for name in ("ckeys", "ccount", "dsig"):
+        check(torch.equal(getattr(inst_b, name), getattr(recomputed, name)), f"{tag}: backfilled {name} differs")
+    # rows whose mean lies outside the cell of their key: each must sit on a cell face
+    rows = live.rows[live.valid]
+    rows = rows[rows != I32_MAX].long()
+    means = ms.scene.points()[rows]
+    own = ms.scene.key[rows]
+    moved = voxel_mod.keys_of(means, torch.ones_like(own, dtype=torch.bool), ms.scene.grid) != own
+    off = (means[moved] - voxel_mod.cell_center(own[moved], ms.scene.grid)).abs().amax(dim=-1)
+    half = 0.5 * ms.scene.grid.voxel_size
+    check(bool((off >= half - 1e-4).all()), f"{tag}: a row's mean left its cell by more than a face's rounding")
+    differ = (recomputed.ckeys != live.ckeys).any(dim=1) & live.valid
+    on_face = torch.zeros_like(live.valid)
+    if bool(moved.any()):
+        bad_rows = rows[moved]
+        on_face = torch.isin(live.rows, bad_rows.to(live.rows.dtype)).any(dim=1) & live.valid
+    check(bool((differ <= on_face).all()), f"{tag}: a recomputed key set differs from the live one off the cell faces")
+    log(f"[{tag}] mapper state {os.path.getsize(path) / 2**20:.1f} MiB: save {1e3 * t_save:.1f} ms, load onto the "
+        f"card {1e3 * t_load:.1f} ms, every tensor equal; a state without ckeys/dsig reloads with them recomputed in "
+        f"{1e3 * t_backfill:.1f} ms, equal to recompute_coarse_keys; {int(live.valid.sum()) - int(differ.sum())} of "
+        f"{int(live.valid.sum())} instances' key sets equal the live ones, {int(differ.sum())} differ by rows whose "
+        f"mean lies on a cell face ({int(moved.sum())} of {len(rows)} rows)")
+    return dict(launches=launches, in_path=in_path, nf=len(frames))
+
+
+def hold_new_shapes(cases, paths):
+    """A case for every K1, K2 and K3 shape a path launched that no case
+    held: K1 and K2 as views of one packed projection, as _attention_2d and
+    _attend launch them; K3 as the towers' linears (k3_case)."""
     held = {c["key"] for c in cases.values()}
-    new = sorted({k for path in paths.values() for k in path["in_path"]["flash_attention"] if k not in held})
     gen = torch.Generator().manual_seed(SEED + 3)
-    for b, h, t, causal in new:
-        c = k2_case(f"k2_b{b}_h{h}_t{t}{'_causal' if causal else ''}", b, h, t, causal, gen, packed=True)
-        log_attention_case(c)
-        cases[c["name"]] = c
+    k3_gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    dtypes = {v: k for k, v in TYPE_NAMES.items()}
+    for kernel in WRAPPERS:
+        for key in sorted({k for path in paths.values() for k in path["in_path"][kernel] if k not in held}):
+            if kernel == "flash_attention":
+                b, h, t, causal = key
+                c = k2_case(f"k2_b{b}_h{h}_t{t}{'_causal' if causal else ''}", b, h, t, causal, gen, packed=True)
+                log_attention_case(c)
+            elif kernel == "flash_attention_2d":
+                b, heads, gh, gw, d = key
+                check(gh == gw, f"K1 launched on a {gh}x{gw} grid: no case builds it")
+                c = k1_case(f"k1_b{b}_h{heads}_g{gh}_d{d}", b, heads, gh, gen, d=d)
+                log_attention_case(c)
+            else:
+                m, k, n, x_name, out_name = key
+                c = k3_case(f"k3_m{m}_{k}x{n}_{x_name}_{out_name}", m, k, n, dtypes[x_name], dtypes[out_name], k3_gen)
+                log_k3_case(c)
+            cases[c["name"]] = c
+
+
+def path_sums(cases, paths) -> None:
+    """For every path and kernel it launched: its launches, their device
+    time in the run, and the kernel phase's per-launch kernel, plain,
+    library and bound times summed over those launches."""
+    by_key = {c["key"]: c for c in cases.values()}
+    for tag, path in paths.items():
+        for name, runs in path["in_path"].items():
+            if not runs:
+                continue
+            n = sum(r[0] for r in runs.values())
+            sums = {f: sum(r[0] * by_key[k][f] for k, r in runs.items())
+                    for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            log(f"[paths] {tag}: {name} {n} launches, {sum(r[1] for r in runs.values()):.4f} ms in the run; summed "
+                f"phase {sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f}, library {sums['library_ms']:.4f} "
+                f"({sums['ms'] / sums['library_ms']:.2f}x), bound {sums['bound_ms']:.4f} ms")
 
 
 KERNELS = (
@@ -1133,20 +1467,38 @@ def main() -> int:
     clip, text = clip_mod.init_clip(clip_mod.VARIANTS[cfg.models.clip.type], seed=SEED, dtype=torch.bfloat16)
     sam = sam_mod.init_sam(sam_mod.VARIANTS[cfg.models.sam.type], seed=SEED + 1, dtype=torch.bfloat16)
     qclip, qsam, _, _, _ = load_models(qcfg)  # the same seeds: the int8 towers of the bf16 ones
+    # (k)'s configuration: SAM vit_h, both towers W8A8; its towers are the
+    # seeded bf16 vit_h and its quantization, as load_models makes them
+    hcfg_dict = copy.deepcopy(qcfg_dict)
+    hcfg_dict["models"]["sam"]["type"] = "vit_h"
+    hcfg = from_dict(hcfg_dict)
+    sam_h = sam_mod.init_sam(sam_mod.VARIANTS["vit_h"], seed=SEED + 1, dtype=torch.bfloat16)
+    qsam_h = sam_mod.quantize_sam(sam_h)
     ds = SyntheticDataset(SyntheticScene.three_room(SEED), num_frames=FRAMES, hw=(480, 640), seed=SEED)
     for i in range(0, len(ds), cfg.pipeline.skip_frames):
         ds[i]  # render up front: data set-up is not mapping time
-    log(f"[setup] bf16 and W8A8 towers + {len(ds)} rendered frames in {time.perf_counter() - t0:.2f} s")
+    log(f"[setup] bf16 and W8A8 towers (SAM vit_b and vit_h) + {len(ds)} rendered frames in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     e_bf16, f_bf16 = tower_checks(clip, sam, ds[0])
     q8_tower_checks(qclip, qsam, ds[0], e_bf16, f_bf16)
     text_tower_check(text)
+    vit_h_tower_checks(sam_h, qsam_h, ds[0])
+    del sam_h
     paths = {"bf16": main_path(clip, sam, ds, cfg, "main", {"flash_attention_2d": 12, "flash_attention": 24,
                                                              "quant_matmul": 0})}
     q8_expect = {"flash_attention_2d": 12, "flash_attention": 24, "quant_matmul": 144}
     paths["w8a8"] = main_path(qclip, qsam, ds, qcfg, "w8a8", q8_expect)
     paths["w8a8 extraction, clip_qmm=pallas"] = extraction_path(
         qclip, qsam, ds, qcfg, "w8a8-pallas", q8_expect, paths["w8a8"]["ms"].keyframe_feats)
+    paths["(k) vit_h W8A8: Mapper.run"] = operating_point_path(qclip, qsam_h, ds, hcfg, "vit_h-w8a8")
+    del qsam_h
+    paths.update(batched_path(clip, sam, ds, CONFIG, "batched"))
+    paths["(l) batched extraction, W8A8, pairs"] = batched_w8a8_extraction(
+        qclip, qsam, ds, qcfg, paths["w8a8"]["ms"].keyframe_feats, "batched-w8a8")
+    for path in paths.values():
+        path.pop("ms", None)  # the mapped scenes are checked: free their device state
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         graph = paths["graph: build_map.run, load, queries"] = graph_path(clip, sam, text, ds, cfg, "graph", tmp)
         oracle_dir = os.path.join(tmp, "oracle")
@@ -1163,7 +1515,9 @@ def main() -> int:
             clip, sam, text, ds, cfg, graph["graph_dir"], rates, "generative")
         paths["(j) serving: serving_bench llava-tinyllama"] = serving_path(
             "serving-llama", "llava-tinyllama", None, batch=8, requests=8, new_tokens=16, chain_calls=1)
-    hold_new_k2_shapes(cases, paths)
+        paths["(m) hierarchical fold + mapper-state checkpoint"] = hierarchical_path(os.path.join(tmp, "state"), "hier")
+    hold_new_shapes(cases, paths)
+    path_sums(cases, paths)
     print(json.dumps(kernels_line(cases, paths)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,8 @@ towers, the dataset and the tokenizer per config."""
 
 from __future__ import annotations
 
+import torch
+
 from ..config import Config
 from ..dataloader.synthetic import SyntheticDataset, SyntheticScene
 from ..device import DeviceLike, dtype_of, resolve
@@ -13,28 +15,35 @@ from ..models.tokenizer import SimpleTokenizer
 
 def load_models(cfg: Config, device: DeviceLike = None):
     """CLIP (visual and text towers) + SAM per config, on `device` (the card
-    unless the caller asks for the CPU), in the configured working dtypes,
-    from seeded random weights (``main.seed`` for both CLIP towers, from
-    one generator, and ``main.seed + 1``).  With ``models.clip.quant`` /
-    ``models.sam.quant`` the image towers are quantized from those weights
-    (W8A8: ``quantize_clip`` / ``quantize_sam``); the text tower stays
-    float, as the reference's.
-    Returns ``(clip, sam, clip_variant, sam_variant, text)``.
-
-    Checkpoint conversion is not ported yet: a configured checkpoint path
-    raises."""
+    unless the caller asks for the CPU), in the configured working dtypes:
+    converted checkpoints where ``models.clip.checkpoint`` /
+    ``models.sam.checkpoint`` name one (an open_clip and an official SAM
+    torch state dict, ``convert_open_clip`` / ``convert_sam``), else seeded
+    random weights (``main.seed`` for both CLIP towers, from one generator,
+    and ``main.seed + 1``).  With ``models.clip.quant`` / ``models.sam.quant``
+    the image towers are then quantized (W8A8: ``quantize_clip`` /
+    ``quantize_sam``), a checkpoint from its float32 values as the
+    reference quantizes its converted params; the text tower stays float,
+    as the reference's.
+    Returns ``(clip, sam, clip_variant, sam_variant, text)``."""
     dev = resolve(device)
     cv = clip_mod.VARIANTS[cfg.models.clip.type]
     sv = sam_mod.VARIANTS[cfg.models.sam.type]
-    for name in ("clip", "sam"):
-        if getattr(cfg.models, name).checkpoint:
-            raise NotImplementedError(f"models.{name}.checkpoint: checkpoint conversion is not ported yet")
-    clip, text = clip_mod.init_clip(cv, seed=cfg.main.seed, dtype=dtype_of(cfg.models.clip.dtype), device=dev)
-    if cfg.models.clip.quant:
-        clip = clip_mod.quantize_clip(clip)
-    sam = sam_mod.init_sam(sv, seed=cfg.main.seed + 1, dtype=dtype_of(cfg.models.sam.dtype), device=dev)
-    if cfg.models.sam.quant:
-        sam = sam_mod.quantize_sam(sam)
+    c, sc = cfg.models.clip, cfg.models.sam
+    dtype, sam_dtype = dtype_of(c.dtype), dtype_of(sc.dtype)
+    if c.checkpoint:
+        clip, text = clip_mod.load_checkpoint(c.checkpoint, cv, dtype=torch.float32 if c.quant else dtype, device=dev)
+        text = text.to(dtype)
+    else:
+        clip, text = clip_mod.init_clip(cv, seed=cfg.main.seed, dtype=dtype, device=dev)
+    if c.quant:
+        clip = clip_mod.quantize_clip(clip, dtype=dtype)
+    if sc.checkpoint:
+        sam = sam_mod.load_checkpoint(sc.checkpoint, sv, dtype=torch.float32 if sc.quant else sam_dtype, device=dev)
+    else:
+        sam = sam_mod.init_sam(sv, seed=cfg.main.seed + 1, dtype=sam_dtype, device=dev)
+    if sc.quant:
+        sam = sam_mod.quantize_sam(sam, dtype=sam_dtype)
     return clip, sam, cv, sv, text
 
 

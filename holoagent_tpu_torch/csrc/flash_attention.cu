@@ -20,13 +20,18 @@
 // a fused qkv projection), write the output as (B, T, H, D), keep every
 // score in registers (no (T, T) tensor in device memory) and mask the
 // ragged key edge themselves.  No route copies its inputs or its output.
+// K2's head dim is 64 (CLIP and the VLMs); K1's is 64 (SAM vit_b, vit_l)
+// or 80 (vit_h: width 1280 over 16 heads): both of K1's kernels are
+// instantiated at each (the template parameter D).
 //
-// What bounds it on the H100.  At the port's shapes (D = 64):
+// What bounds it on the H100.  At the port's shapes (D = 64 unless named):
 //   K1 global layers  BH=12,  N=4096: 51.5 GFLOP of tensor-core work against
 //                     ~50 MB of traffic -> compute-bound (~52 us at 989
 //                     TF/s); the softmax's 201 M exponentials take about as
 //                     long again on the SFUs (16 a clock per SM);
 //   K1 windows        BH=300, N=196:   ~3 GFLOP, ~37 MB  -> memory-bound;
+//   K1 vit_h global   BH=16, N=4096, D=80: 85.9 GFLOP -> compute-bound (87 us);
+//   K1 vit_h windows  BH=400, N=196, D=80: 4.9 GFLOP, ~62 MB -> memory-bound;
 //   K2 CLIP crops     BH=16*(2*tier+1), T=257: 8.9 GFLOP against 69 MB at
 //                     tier 16 -> memory-bound (21 us at 3.35 TB/s);
 //   K2 text tower     BH=256*12, T=77, causal: 2.4 GFLOP of causal pairs
@@ -110,6 +115,25 @@
 // registers set the limit, and the causal instantiation is built for four
 // blocks an SM (at most 128 registers a thread).
 //
+// Head dim 80 (K1 only).  An 80-wide bf16 row is 160 bytes: ten 16-byte
+// chunks, which no XOR swizzle within the row permutes.
+//   - The resident kernel keeps its panels unswizzled at a pitch of 176
+//     bytes (Panel<80>): the 8 rows an ldmatrix reads at one chunk start 12
+//     banks apart modulo 32, on 8 different groups of 4 banks.  QK^T takes
+//     5 k16 steps (the fifth's B fragments by ldmatrix.x2), P V 10 n8 tiles.
+//     The windows' K, V and bias (88 KB at N = 196) let two blocks share an
+//     SM, so the instantiation is built for two (up to 255 registers).
+//   - The global kernel splits each Q, K and V tile into a head (columns
+//     0-63, one 128-byte-swizzled TMA box as at D = 64) and a tail (columns
+//     64-79, a second box with the 32-byte swizzle): 20 KB a tile, 140 KB
+//     with the 3-stage ring.  QK^T is 4 k16 wgmma steps on the heads plus
+//     one on the tails; P V an m64n64k16 wgmma on V's head plus an
+//     m64n16k16 one on its tail, both with P from registers.  The other
+//     form, two 64-column boxes with the second zero-filled past column 80,
+//     would run both products at a padded 128 (1.6x the tensor-core work
+//     and 64 accumulator registers a thread instead of 40) and need 225 KB
+//     of shared memory for 3 stages; the split form does no wasted work.
+//
 // Left for later: a persistent tile loop and intra-warpgroup overlap of the
 // next tile's QK^T with this tile's softmax in the global kernel; wgmma in
 // the resident kernel.
@@ -129,6 +153,7 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.44269504088896341f;  // scores in log2 units: exp(x) = exp2(x * log2(e))
 constexpr int ROW_BYTES = 128;                 // one 64-wide bf16 row of Q, K or V
+constexpr int HEAD_DIM_WIDE = 80;              // K1's second head dim (SAM vit_h: width 1280 / 16 heads)
 
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
                                           uint32_t b0, uint32_t b1) {
@@ -177,11 +202,31 @@ constexpr int RES_MIN_BLOCKS = 3;  // blocks an SM must hold: at most 168 regist
 // and still runs the text launch about 6% faster than at 3.  Where shared
 // memory allows fewer blocks anyway (T above 224) it only costs registers.
 constexpr int RES_MIN_BLOCKS_CAUSAL = 4;
+// At D = 80 a window batch's K and V (N = 196: 73 KB) and bias slices (14
+// KB) let two blocks share an SM whatever the registers, so that
+// instantiation may take up to 255 registers a thread and spills nothing.
+constexpr int RES_MIN_BLOCKS_WIDE = 2;
 constexpr int CHUNK = 4;           // 16-key groups per step of the online softmax
 constexpr int RES_HW_MAX = 128;    // largest grid_h + grid_w the resident kernel takes with the bias; ops/flash_attention.py has a copy
 
-// byte offset of 16-byte chunk `c` (0..7) of row `r` in a swizzled K or V panel
-__device__ __forceinline__ uint32_t swz(int r, int c) { return r * ROW_BYTES + ((c ^ (r & 7)) << 4); }
+// A K or V panel in shared memory: one row of D bf16 a key, in 16-byte
+// chunks.  D = 64: 128-byte rows, chunk c of row r stored at chunk c ^ (r %
+// 8), so the 8 rows an ldmatrix reads at one chunk hit 8 different groups of
+// 4 banks.  D = 80: 10 chunks do not XOR-swizzle within a row, so a row is
+// 160 bytes plus 16 of padding: at a pitch of 176 bytes (44 words, 12 modulo
+// 32) the 8 rows of one chunk also start on 8 different groups of 4 banks.
+template <int D>
+struct Panel;
+template <>
+struct Panel<64> {
+  static constexpr int PITCH = ROW_BYTES;
+  __device__ static __forceinline__ uint32_t off(int r, int c) { return r * PITCH + ((c ^ (r & 7)) << 4); }
+};
+template <>
+struct Panel<HEAD_DIM_WIDE> {
+  static constexpr int PITCH = 176;
+  __device__ static __forceinline__ uint32_t off(int r, int c) { return r * PITCH + (c << 4); }
+};
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
@@ -202,23 +247,28 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n" : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
+}
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }
 
-// Copy rows [0, t) of a (t, 64) panel with token stride `st` into a swizzled
-// shared panel of t16 rows; rows t..t16-1 become zeros.
+// Copy rows [0, t) of a (t, D) panel with token stride `st` into a shared
+// panel of t16 rows (Panel<D>); rows t..t16-1 become zeros.
+template <int D>
 __device__ __forceinline__ void stage_panel(uint32_t dst, unsigned char* dst_ptr,
                                             const __nv_bfloat16* __restrict__ src, long long st, int t,
                                             int t16) {
-  for (int i = threadIdx.x; i < t16 * 8; i += RES_THREADS) {
-    const int r = i >> 3, c = i & 7;
+  constexpr int C = D / 8;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < t16 * C; i += RES_THREADS) {
+    const int r = i / C, c = i % C;
     if (r < t)
-      cp_async16(dst + swz(r, c), src + r * st + c * 8);
+      cp_async16(dst + Panel<D>::off(r, c), src + r * st + c * 8);
     else
-      *reinterpret_cast<uint4*>(dst_ptr + swz(r, c)) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(dst_ptr + Panel<D>::off(r, c)) = make_uint4(0u, 0u, 0u, 0u);
   }
   cp_async_commit();
 }
@@ -245,9 +295,10 @@ struct BiasRows {
 
 // One warp's 16 query rows: Q as mma A fragments, the output accumulator
 // and the running max and partial sum of each of its two rows.
+template <int D>
 struct Rows {
-  uint32_t qa[4][4];
-  float acc[8][4];
+  uint32_t qa[D / 16][4];
+  float acc[D / 8][4];
   float m[2], l[2];
 };
 
@@ -263,10 +314,9 @@ struct Rows {
 // the key table `tab` and the rows from `br`, and the max is that of the
 // biased scores.
 // No branch inside, so the compiler interleaves the groups' MMAs.
-template <int G, bool MASK, bool REL_POS, bool CAUSAL>
-__device__ __forceinline__ void attend_chunk(Rows& st, uint32_t ks, uint32_t vs, int key0, int edge, float scale,
+template <int G, bool MASK, bool REL_POS, bool CAUSAL, int D>
+__device__ __forceinline__ void attend_chunk(Rows<D>& st, uint32_t ks, uint32_t vs, int key0, int edge, float scale,
                                              bool& v_ready, const uint32_t* tab, const BiasRows& br) {
-  constexpr int D = 64;
   const int lane = threadIdx.x & 31;
   const int tg = lane & 3;
   // ldmatrix row and chunk of this lane: K (x4 over 4 chunks of one 8-key group),
@@ -280,11 +330,16 @@ __device__ __forceinline__ void attend_chunk(Rows& st, uint32_t ks, uint32_t vs,
     s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
     const int key = key0 + j * 8 + k_row;
     uint32_t kb[2][4];  // chunks 0-3 and 4-7 of 8 keys: b0, b1 of head-dim steps 0-1 and 2-3
-    ldmatrix_x4(kb[0], ks + swz(key, k_chunk));
-    ldmatrix_x4(kb[1], ks + swz(key, 4 + k_chunk));
+    ldmatrix_x4(kb[0], ks + Panel<D>::off(key, k_chunk));
+    ldmatrix_x4(kb[1], ks + Panel<D>::off(key, 4 + k_chunk));
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < 4; ++kk)
       mma_16816(s[j], st.qa[kk], kb[kk / 2][(kk % 2) * 2], kb[kk / 2][(kk % 2) * 2 + 1]);
+    if constexpr (D == HEAD_DIM_WIDE) {  // chunks 8-9: head-dim step 4 (lanes 0-7 chunk 8, 8-15 chunk 9)
+      uint32_t kt[2];
+      ldmatrix_x2(kt, ks + Panel<D>::off(key, 8 + (k_chunk & 1)));
+      mma_16816(s[j], st.qa[4], kt[0], kt[1]);
+    }
   }
 
   if constexpr (REL_POS) {
@@ -353,35 +408,42 @@ __device__ __forceinline__ void attend_chunk(Rows& st, uint32_t ks, uint32_t vs,
 #pragma unroll
     for (int dp = 0; dp < D / 16; ++dp) {
       uint32_t vb[4];
-      ldmatrix_x4_trans(vb, vs + swz(key, 2 * dp + v_chunk));
+      ldmatrix_x4_trans(vb, vs + Panel<D>::off(key, 2 * dp + v_chunk));
       mma_16816(st.acc[2 * dp], pa, vb[0], vb[1]);
       mma_16816(st.acc[2 * dp + 1], pa, vb[2], vb[3]);
     }
   }
 }
 
-// Shared memory of the resident kernel for t tokens; hw = grid_h + grid_w
-// with the bias (the key table and four warps' two bias slices), 0 without.
+// Shared memory of the resident kernel for t tokens of head dim D; hw =
+// grid_h + grid_w with the bias (the key table and four warps' two bias
+// slices), 0 without.  tests/test_torch_vit_h.py holds the formula per head dim.
+template <int D>
 __host__ __device__ constexpr size_t resident_smem(int t, int hw) {
-  return static_cast<size_t>(2) * ((t + 15) & ~15) * ROW_BYTES +
+  return static_cast<size_t>(2) * ((t + 15) & ~15) * Panel<D>::PITCH +
          (hw ? static_cast<size_t>((t + 15) & ~15) * 4 + static_cast<size_t>(2 * RES_WARPS) * 16 * hw * 4 : 0);
 }
+// The largest launch of each instantiation must fit one block's shared memory.
+static_assert(resident_smem<64>(T_MAX, RES_HW_MAX) <= 232448, "resident kernel, D = 64");
+static_assert(resident_smem<HEAD_DIM_WIDE>(T_MAX, RES_HW_MAX) <= 232448, "resident kernel, D = 80");
 
-// q, k, v (B, H, T, 64) bf16 at the given strides; o (B, T, H, 64) bf16,
+// q, k, v (B, H, T, D) bf16 at the given strides; o (B, T, H, D) bf16,
 // contiguous.  Block (x, y): head y = b * H + h and its x-th share of the
-// head's query tiles of 16 rows, which its warps take in turn.
-template <bool REL_POS, bool CAUSAL>
-__global__ void __launch_bounds__(RES_THREADS, CAUSAL ? RES_MIN_BLOCKS_CAUSAL : RES_MIN_BLOCKS)
+// head's query tiles of 16 rows, which its warps take in turn.  D = 64, or
+// 80 with the bias (K1 only).
+template <bool REL_POS, bool CAUSAL, int D = 64>
+__global__ void __launch_bounds__(RES_THREADS, CAUSAL ? RES_MIN_BLOCKS_CAUSAL
+                                                      : D == 64 ? RES_MIN_BLOCKS : RES_MIN_BLOCKS_WIDE)
 resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, Strides sq, Strides sk,
                 Strides sv, int heads, int t, int tiles_per_block, float scale, RelPos rp) {
   static_assert(!(REL_POS && CAUSAL), "the bias and the causal mask never meet");
-  constexpr int D = 64;
+  static_assert(D == 64 || (D == HEAD_DIM_WIDE && REL_POS), "K2 takes D = 64; K1 takes 64 and 80");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int t16 = (t + 15) & ~15;
   const int n16 = t16 / 16;
   unsigned char* ks_ptr = smem_raw;
-  unsigned char* vs_ptr = smem_raw + t16 * ROW_BYTES;
+  unsigned char* vs_ptr = smem_raw + t16 * Panel<D>::PITCH;
   const uint32_t ks = smem_u32(ks_ptr), vs = smem_u32(vs_ptr);
 
   // Causal: the block's j-th query tile, or -1 past its last: the head's
@@ -401,8 +463,8 @@ resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   k += b * sk.b + h * sk.h;
   v += b * sv.b + h * sv.h;
   const int t_staged = CAUSAL ? min(t, t16_staged) : t;
-  stage_panel(ks, ks_ptr, k, sk.t, t_staged, t16_staged);  // commit group 0: K
-  stage_panel(vs, vs_ptr, v, sv.t, t_staged, t16_staged);  // commit group 1: V
+  stage_panel<D>(ks, ks_ptr, k, sk.t, t_staged, t16_staged);  // commit group 0: K
+  stage_panel<D>(vs, vs_ptr, v, sv.t, t_staged, t16_staged);  // commit group 1: V
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -414,7 +476,7 @@ resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 
   // with the bias: key k's (ky, kx), one division per key and block; then
   // this warp's two slices, each 16 rows of bias_h and 16 of bias_w
-  uint32_t* tab = reinterpret_cast<uint32_t*>(vs_ptr + t16 * ROW_BYTES);
+  uint32_t* tab = reinterpret_cast<uint32_t*>(vs_ptr + t16 * Panel<D>::PITCH);
   const int hw = rp.grid_h + rp.grid_w;
   float* slices = reinterpret_cast<float*>(tab + t16) + warp * 2 * 16 * hw;
   if constexpr (REL_POS) {
@@ -465,7 +527,7 @@ resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     else
       return tile + RES_WARPS < tile_end ? tile + RES_WARPS : -1;
   };
-  Rows st;
+  Rows<D> st;
   BiasRows br{};
   int tile = CAUSAL ? snake(0) : x * tiles_per_block + warp;
   if (!CAUSAL && tile >= tile_end) tile = -1;
@@ -499,13 +561,13 @@ resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     const int groups = CAUSAL ? tile % CHUNK + 1 : tail;
     const int edge = CAUSAL ? r0 : t;
     for (int c = 0; c < below; ++c)
-      attend_chunk<CHUNK, false, REL_POS, CAUSAL>(st, ks, vs, c * 16 * CHUNK, edge, scale, v_ready, tab, br);
+      attend_chunk<CHUNK, false, REL_POS, CAUSAL, D>(st, ks, vs, c * 16 * CHUNK, edge, scale, v_ready, tab, br);
     const int key0 = below * 16 * CHUNK;
     switch (groups) {  // cases above CHUNK never occur
-      case 4: attend_chunk<4, true, REL_POS, CAUSAL>(st, ks, vs, key0, edge, scale, v_ready, tab, br); break;
-      case 3: attend_chunk<3, true, REL_POS, CAUSAL>(st, ks, vs, key0, edge, scale, v_ready, tab, br); break;
-      case 2: attend_chunk<2, true, REL_POS, CAUSAL>(st, ks, vs, key0, edge, scale, v_ready, tab, br); break;
-      case 1: attend_chunk<1, true, REL_POS, CAUSAL>(st, ks, vs, key0, edge, scale, v_ready, tab, br); break;
+      case 4: attend_chunk<4, true, REL_POS, CAUSAL, D>(st, ks, vs, key0, edge, scale, v_ready, tab, br); break;
+      case 3: attend_chunk<3, true, REL_POS, CAUSAL, D>(st, ks, vs, key0, edge, scale, v_ready, tab, br); break;
+      case 2: attend_chunk<2, true, REL_POS, CAUSAL, D>(st, ks, vs, key0, edge, scale, v_ready, tab, br); break;
+      case 1: attend_chunk<1, true, REL_POS, CAUSAL, D>(st, ks, vs, key0, edge, scale, v_ready, tab, br); break;
       default: break;
     }
 
@@ -542,15 +604,15 @@ struct Plan {
 };
 
 // hw: grid_h + grid_w with the bias (REL_POS), else 0.
-template <bool REL_POS, bool CAUSAL>
+template <bool REL_POS, bool CAUSAL, int D = 64>
 cudaError_t resident_plan(int bh, int t, int hw, Plan* plan) {
-  plan->smem = resident_smem(t, REL_POS ? hw : 0);
+  plan->smem = resident_smem<D>(t, REL_POS ? hw : 0);
   // per device: the shared-memory allowance (set once, for the largest
   // launch) and the blocks per SM at each size, so a launch makes no CUDA
   // queries after the first at its size
   static std::mutex mu;
   static std::map<std::pair<int, size_t>, int> blocks_per_sm;
-  auto kernel = resident_kernel<REL_POS, CAUSAL>;
+  auto kernel = resident_kernel<REL_POS, CAUSAL, D>;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -564,7 +626,7 @@ cudaError_t resident_plan(int bh, int t, int hw, Plan* plan) {
   }
   if (cached == 0) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(resident_smem(T_MAX, REL_POS ? RES_HW_MAX : 0)));
+                               static_cast<int>(resident_smem<D>(T_MAX, REL_POS ? RES_HW_MAX : 0)));
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cached, kernel, RES_THREADS, plan->smem);
     if (err != cudaSuccess) return err;
@@ -590,14 +652,14 @@ cudaError_t resident_plan(int bh, int t, int hw, Plan* plan) {
   return cudaSuccess;
 }
 
-template <bool REL_POS, bool CAUSAL>
+template <bool REL_POS, bool CAUSAL, int D = 64>
 int launch_resident(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk, Strides sv,
                     int b, int h, int t, float scale, RelPos rp, cudaStream_t stream) {
   Plan plan;
-  cudaError_t err = resident_plan<REL_POS, CAUSAL>(b * h, t, rp.grid_h + rp.grid_w, &plan);
+  cudaError_t err = resident_plan<REL_POS, CAUSAL, D>(b * h, t, rp.grid_h + rp.grid_w, &plan);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(plan.splits, b * h);
-  resident_kernel<REL_POS, CAUSAL><<<grid, RES_THREADS, plan.smem, stream>>>(
+  resident_kernel<REL_POS, CAUSAL, D><<<grid, RES_THREADS, plan.smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq, sk, sv, h, t,
       plan.tiles_per_block, REL_POS ? scale : scale * LOG2E, rp);
@@ -609,15 +671,15 @@ int launch_resident(const void* q, const void* k, const void* v, void* o, Stride
 // memory a block (bytes), and the blocks per SM that its registers alone and
 // its shared memory alone allow (the latter from the device's shared memory
 // per SM and what it reserves for each block).
-template <bool REL_POS, bool CAUSAL>
+template <bool REL_POS, bool CAUSAL, int D = 64>
 cudaError_t resident_report(int bh, int t, int hw, int* out) {
   Plan plan;
   cudaFuncAttributes attr;
   int by_regs = 0, dev = 0, smem_per_sm = 0, reserved = 0;
-  cudaError_t err = resident_plan<REL_POS, CAUSAL>(bh, t, hw, &plan);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, resident_kernel<REL_POS, CAUSAL>);
+  cudaError_t err = resident_plan<REL_POS, CAUSAL, D>(bh, t, hw, &plan);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, resident_kernel<REL_POS, CAUSAL, D>);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&by_regs, resident_kernel<REL_POS, CAUSAL>, RES_THREADS, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&by_regs, resident_kernel<REL_POS, CAUSAL, D>, RES_THREADS, 0);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&smem_per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
@@ -639,11 +701,28 @@ constexpr int G_BK = 128;      // keys a tile
 constexpr int G_STAGES = 3;    // K/V ring
 constexpr int G_THREADS = 384; // producer warpgroup + two consumer warpgroups
 constexpr int G_CONSUMER_WARPS = 8;
-constexpr int G_TILE_BYTES = G_BK * ROW_BYTES;  // one K or V tile, 16 KB
-constexpr int G_Q_BYTES = G_BQ * ROW_BYTES;     // 16 KB
-constexpr int G_SMEM = G_Q_BYTES + G_STAGES * 2 * G_TILE_BYTES + 1024;  // + slack to align to 1 KB
+constexpr int G_TAIL_BYTES = 32;  // a row's last 16 columns at D = 80
 static_assert(G_BQ == G_BK, "one TMA box shape serves Q, K and V");
 static_assert(G_BK % G_W == 0, "a key tile holds whole grid rows");
+
+// A Q, K or V tile of 128 rows as TMA lands it.  Its head, the first 64
+// columns (128 bytes a row), is one box with the 128-byte swizzle.  A
+// 128-byte-swizzled box holds at most 64 bf16 columns, so at D = 80 the last
+// 16 columns (32 bytes a row) are a second box, the tail, with the 32-byte
+// swizzle.  QK^T then runs 4 k16 steps on the heads and one on the tails,
+// and P V an n64 wgmma on V's head and an n16 wgmma on its tail.
+template <int D>
+struct GTile {
+  static_assert(D == 64 || D == HEAD_DIM_WIDE, "the global kernel takes D = 64 or 80");
+  static constexpr bool TAIL = D == HEAD_DIM_WIDE;
+  static constexpr int HEAD = G_BK * ROW_BYTES;                // 16 KB
+  static constexpr int TAIL_BYTES = TAIL ? G_BK * G_TAIL_BYTES : 0;  // 4 KB
+  static constexpr int BYTES = HEAD + TAIL_BYTES;
+  // Q, then the K/V ring; + slack to align to 1 KB (the 128-byte swizzle's period)
+  static constexpr int SMEM = BYTES + G_STAGES * 2 * BYTES + 1024;
+};
+static_assert(GTile<64>::SMEM == 16384 + G_STAGES * 2 * 16384 + 1024, "D = 64 keeps its layout");
+static_assert(GTile<HEAD_DIM_WIDE>::SMEM <= 232448, "the D = 80 ring fits one block's shared memory");
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -671,14 +750,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
-// One (64 x G_BK rows) box of a 4-D (D, token, head, batch) bf16 tensor map
-// into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int row, int head,
-                                         int batch) {
+// One box of a 4-D (D, token, head, batch) bf16 tensor map, from column
+// `col` and token `row`, into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int col, int row,
+                                         int head, int batch) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, "
       "%6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(head), "r"(batch)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(head), "r"(batch)
       : "memory");
 }
 
@@ -695,6 +774,15 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo = 16)
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
 }
 __device__ __forceinline__ uint64_t sw128_desc_mn(uint32_t addr) { return sw128_desc(addr, 1024); }
+// The same for a tail tile (32-byte swizzle, layout type 3): rows of 32
+// bytes, 8-row groups 256 bytes apart.  K-major (Q, K: one k16 step is the
+// whole row) and MN-major (V: 16 head dims, one swizzle atom wide; the
+// groups step along the keys) alike; the leading byte offset, which would
+// step to a second atom, is never used and is set to 256 too.
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(256 >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32) | (static_cast<uint64_t>(3) << 62);
+}
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() {
@@ -753,22 +841,48 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// q, k, v through their tensor maps; o (B, N, H, 64) bf16, contiguous.
+// d (m64 x 16 head dims, f32) += P (64 x 16 keys, bf16 A fragments in registers) * V's tail (16 keys x 16, MN-major)
+__device__ __forceinline__ void wgmma_pv16(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The tensor maps of q, k and v (the heads' boxes), and at D = 80 of their
+// tails: kernel parameters, read by TMA where they lie.
+template <int D>
+struct Maps {
+  CUtensorMap q, k, v;
+};
+template <>
+struct Maps<HEAD_DIM_WIDE> {
+  CUtensorMap q, k, v, q_tail, k_tail, v_tail;
+};
+
+// q, k, v through their tensor maps; o (B, N, H, D) bf16, contiguous.
 // REL_POS (K1): bias_h (bh, n, grid_h), bias_w (bh, n, 64) f32, contiguous;
 // block (x, y) is head y = b * H + h, queries [128 x, 128 x + 128).  Without
 // (K2): `causal` masks key > query; block (x, y) is head x and the query
 // tile gridDim.y - 1 - y, so the heaviest causal tiles of every head launch
 // first.
-template <bool REL_POS>
+template <bool REL_POS, int D = 64>
 __global__ void __launch_bounds__(G_THREADS, 1)
-global_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
-              const __grid_constant__ CUtensorMap map_v, const float* __restrict__ bias_h,
+global_kernel(const __grid_constant__ Maps<D> maps, const float* __restrict__ bias_h,
               const float* __restrict__ bias_w, __nv_bfloat16* __restrict__ o, int heads, int n, int grid_h,
               int causal, float scale_log2) {
+  using T = GTile<D>;
+  static_assert(D == 64 || REL_POS, "K2 takes D = 64");
   __shared__ __align__(8) uint64_t q_bar, full_bar[G_STAGES], empty_bar[G_STAGES];
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const uint32_t q_smem = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the 128-byte swizzle wants 1 KB
-  const uint32_t ring = q_smem + G_Q_BYTES;
+  // Q's head, Q's tail, then the ring; a stage holds K's head, V's head, K's
+  // tail and V's tail, each 1 KB aligned (the 128-byte swizzle wants 1 KB,
+  // the 32-byte one 256 bytes)
+  const uint32_t q_smem = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t ring = q_smem + T::BYTES;
 
   const int warpgroup = threadIdx.x / 128;
   const int bh = REL_POS ? blockIdx.y : blockIdx.x, b = bh / heads, h = bh % heads;
@@ -792,16 +906,21 @@ global_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
     // producer: Q once, then keep the K/V ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(smem_u32(&q_bar), G_Q_BYTES);
-      tma_load(q_smem, &map_q, smem_u32(&q_bar), q0, h, b);
+      mbar_expect_tx(smem_u32(&q_bar), T::BYTES);
+      tma_load(q_smem, &maps.q, smem_u32(&q_bar), 0, q0, h, b);
+      if constexpr (T::TAIL) tma_load(q_smem + T::HEAD, &maps.q_tail, smem_u32(&q_bar), 64, q0, h, b);
       for (int kt = 0; kt < num_kt; ++kt) {
         const int s = kt % G_STAGES;
         if (kt >= G_STAGES) mbar_wait(smem_u32(&empty_bar[s]), ((kt / G_STAGES) - 1) & 1);
         const uint32_t full = smem_u32(&full_bar[s]);
-        const uint32_t tile = ring + s * 2 * G_TILE_BYTES;
-        mbar_expect_tx(full, 2 * G_TILE_BYTES);
-        tma_load(tile, &map_k, full, kt * G_BK, h, b);
-        tma_load(tile + G_TILE_BYTES, &map_v, full, kt * G_BK, h, b);
+        const uint32_t tile = ring + s * 2 * T::BYTES;
+        mbar_expect_tx(full, 2 * T::BYTES);
+        tma_load(tile, &maps.k, full, 0, kt * G_BK, h, b);
+        tma_load(tile + T::HEAD, &maps.v, full, 0, kt * G_BK, h, b);
+        if constexpr (T::TAIL) {
+          tma_load(tile + 2 * T::HEAD, &maps.k_tail, full, 64, kt * G_BK, h, b);
+          tma_load(tile + 2 * T::HEAD + T::TAIL_BYTES, &maps.v_tail, full, 64, kt * G_BK, h, b);
+        }
       }
     }
   } else {
@@ -837,18 +956,26 @@ global_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
     const int last[2] = {causal ? min(row[0], n - 1) : n - 1, causal ? min(row[1], n - 1) : n - 1};
     const int first_masked = ((causal ? min(q0 + c * 64, n - 1) : n - 1) + 1) / G_BK;
 
-    float acc[32], sacc[64];
+    // the output accumulator: head dims 0-63 in acc, at D = 80 dims 64-79 in
+    // acc_t (n8 tile j of either in slots 4 j .. 4 j + 3)
+    float acc[32], acc_t[T::TAIL ? 8 : 1], sacc[64];
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    if constexpr (T::TAIL) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc_t[i] = 0.f;
+    }
 #pragma unroll
     for (int i = 0; i < 64; ++i) sacc[i] = 0.f;
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // l: per-thread partial sums
     const uint32_t q_sub = q_smem + c * 64 * ROW_BYTES;
+    const uint32_t q_tail = q_smem + T::HEAD + c * 64 * G_TAIL_BYTES;
     mbar_wait(smem_u32(&q_bar), 0);
 
     for (int kt = 0; kt < num_kt; ++kt) {
       const int s = kt % G_STAGES;
-      const uint32_t k_tile = ring + s * 2 * G_TILE_BYTES, v_tile = k_tile + G_TILE_BYTES;
+      const uint32_t k_tile = ring + s * 2 * T::BYTES, v_tile = k_tile + T::HEAD;
+      const uint32_t k_tail = k_tile + 2 * T::HEAD, v_tail = k_tail + T::TAIL_BYTES;
       // bias_h of the tile's two grid rows, issued before the wait; a grid
       // row past grid_h masks its keys
       float bhv[2][2];
@@ -866,6 +993,7 @@ global_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) wgmma_qk(sacc, sw128_desc(q_sub + kk * 32), sw128_desc(k_tile + kk * 32), kk);
+      if constexpr (T::TAIL) wgmma_qk(sacc, sw32_desc(q_tail), sw32_desc(k_tail), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sacc);
@@ -926,6 +1054,15 @@ global_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
         acc[4 * j + 2] *= alpha[1];
         acc[4 * j + 3] *= alpha[1];
       }
+      if constexpr (T::TAIL) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          acc_t[4 * j] *= alpha[0];
+          acc_t[4 * j + 1] *= alpha[0];
+          acc_t[4 * j + 2] *= alpha[1];
+          acc_t[4 * j + 3] *= alpha[1];
+        }
+      }
       // p = 2^(x + shift): with the bias x is already in log2 units (an FMA
       // by 1 is an add); without, x = s * scale * log2(e), one FFMA
       const float sc = REL_POS ? 1.f : scale_log2;
@@ -947,9 +1084,14 @@ global_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) wgmma_pv(acc, pa[kk], sw128_desc_mn(v_tile + kk * 16 * ROW_BYTES));
+      if constexpr (T::TAIL) {
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) wgmma_pv16(acc_t, pa[kk], sw32_desc(v_tail + kk * 16 * G_TAIL_BYTES));
+      }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
+      if constexpr (T::TAIL) fence_regs(acc_t);
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
       if (lane == 0) mbar_arrive(smem_u32(&empty_bar[s]));  // this warp is done with the stage
@@ -962,11 +1104,17 @@ global_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       const float inv = 1.f / fmaxf(sum, 1e-30f);
       if (row[r] >= n) continue;
-      __nv_bfloat16* out = o + ((static_cast<size_t>(b) * n + row[r]) * heads + h) * 64;
+      __nv_bfloat16* out = o + ((static_cast<size_t>(b) * n + row[r]) * heads + h) * D;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         *reinterpret_cast<uint32_t*>(out + j * 8 + tg * 2) =
             pack_bf16x2(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+      if constexpr (T::TAIL) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          *reinterpret_cast<uint32_t*>(out + 64 + j * 8 + tg * 2) =
+              pack_bf16x2(acc_t[4 * j + 2 * r] * inv, acc_t[4 * j + 2 * r + 1] * inv);
+      }
     }
   }
 }
@@ -994,81 +1142,101 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// (batch, heads, n, 64) bf16 at strides `s` (elements) as 64 x G_BK boxes
-// with the 128-byte swizzle; rows past n read as zero.
-cudaError_t make_map(CUtensorMap* map, const void* base, Strides s, int batch, int heads, int n) {
+// (batch, heads, n, d) bf16 at strides `s` (elements) as boxes of `box_w`
+// columns x G_BK rows with the given swizzle; rows past n read as zero.
+cudaError_t make_map(CUtensorMap* map, const void* base, Strides s, int batch, int heads, int n, int d, int box_w,
+                     CUtensorMapSwizzle swizzle) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s.t) * 2, static_cast<cuuint64_t>(s.h) * 2,
                                  static_cast<cuuint64_t>(s.b) * 2};
-  const cuuint32_t box[4] = {64, G_BK, 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_w), G_BK, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The shared-memory allowance of global_kernel<REL_POS>, set once per device.
-template <bool REL_POS>
+// The head box (64 columns, 128-byte swizzle) and at D = 80 the tail box
+// (16 columns from column 64, 32-byte swizzle) of one of q, k, v.
+template <int D>
+cudaError_t make_maps(CUtensorMap* head, CUtensorMap* tail, const void* base, Strides s, int batch, int heads,
+                      int n) {
+  cudaError_t err = make_map(head, base, s, batch, heads, n, D, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess && GTile<D>::TAIL)
+    err = make_map(tail, base, s, batch, heads, n, D, 16, CU_TENSOR_MAP_SWIZZLE_32B);
+  return err;
+}
+
+// The shared-memory allowance of global_kernel<REL_POS, D>, set once per device.
+template <bool REL_POS, int D = 64>
 cudaError_t global_smem_allowance() {
   static std::atomic<unsigned> smem_set{0};  // devices it may use its shared memory on
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && (dev >= 32 || !(smem_set.load() >> dev & 1u))) {
-    err = cudaFuncSetAttribute(global_kernel<REL_POS>, cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
+    err = cudaFuncSetAttribute(global_kernel<REL_POS, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               GTile<D>::SMEM);
     if (err == cudaSuccess && dev < 32) smem_set.fetch_or(1u << dev);
   }
   return err;
 }
 
-template <bool REL_POS>
+template <bool REL_POS, int D = 64>
 int launch_global(const void* q, const void* k, const void* v, const void* bias_h, const void* bias_w, void* o,
                   Strides sq, Strides sk, Strides sv, int b, int h, int n, int grid_h, int causal, float scale,
                   cudaStream_t stream) {
-  CUtensorMap map_q, map_k, map_v;
-  cudaError_t err = make_map(&map_q, q, sq, b, h, n);
-  if (err == cudaSuccess) err = make_map(&map_k, k, sk, b, h, n);
-  if (err == cudaSuccess) err = make_map(&map_v, v, sv, b, h, n);
-  if (err == cudaSuccess) err = global_smem_allowance<REL_POS>();
+  Maps<D> maps;
+  CUtensorMap tails[3];
+  cudaError_t err = make_maps<D>(&maps.q, &tails[0], q, sq, b, h, n);
+  if (err == cudaSuccess) err = make_maps<D>(&maps.k, &tails[1], k, sk, b, h, n);
+  if (err == cudaSuccess) err = make_maps<D>(&maps.v, &tails[2], v, sv, b, h, n);
+  if (err == cudaSuccess) err = global_smem_allowance<REL_POS, D>();
   if (err != cudaSuccess) return static_cast<int>(err);
+  if constexpr (GTile<D>::TAIL) {
+    maps.q_tail = tails[0];
+    maps.k_tail = tails[1];
+    maps.v_tail = tails[2];
+  }
   const int q_tiles = (n + G_BQ - 1) / G_BQ;
   const dim3 grid = REL_POS ? dim3(q_tiles, b * h) : dim3(b * h, q_tiles);
-  global_kernel<REL_POS><<<grid, G_THREADS, G_SMEM, stream>>>(
-      map_q, map_k, map_v, static_cast<const float*>(bias_h), static_cast<const float*>(bias_w),
-      static_cast<__nv_bfloat16*>(o), h, n, grid_h, causal, scale * LOG2E);
+  global_kernel<REL_POS, D><<<grid, G_THREADS, GTile<D>::SMEM, stream>>>(
+      maps, static_cast<const float*>(bias_h), static_cast<const float*>(bias_w), static_cast<__nv_bfloat16*>(o),
+      h, n, grid_h, causal, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// K1: q, k, v (b, h, n, 64) bf16 at strides s*_b, s*_h, s*_t (elements;
-// multiples of 8, starts 16-byte aligned); bias_h (b*h, n, grid_h) and
-// bias_w (b*h, n, grid_w) f32, contiguous; o (b, n, h, 64) bf16, contiguous;
-// n == grid_h * grid_w.  n <= T_MAX: the resident kernel with the bias, for
-// grid_h + grid_w <= RES_HW_MAX; else the global kernel, which takes grid_w
-// == 64 only.  Returns the cudaError_t of the launch.
+// K1: q, k, v (b, h, n, d) bf16 at strides s*_b, s*_h, s*_t (elements;
+// multiples of 8, starts 16-byte aligned), d = 64 or 80; bias_h (b*h, n,
+// grid_h) and bias_w (b*h, n, grid_w) f32, contiguous; o (b, n, h, d) bf16,
+// contiguous; n == grid_h * grid_w.  n <= T_MAX: the resident kernel with
+// the bias, for grid_h + grid_w <= RES_HW_MAX; else the global kernel, which
+// takes grid_w == 64 only.  Returns the cudaError_t of the launch.
 extern "C" int ha_flash_attention_2d(const void* q, const void* k, const void* v, const void* bias_h,
                                      const void* bias_w, void* o, long long sq_b, long long sq_h, long long sq_t,
                                      long long sk_b, long long sk_h, long long sk_t, long long sv_b,
                                      long long sv_h, long long sv_t, int b, int h, int n, int d, int grid_h,
                                      int grid_w, float scale, void* stream) {
-  if (d != 64 || n <= 0 || b <= 0 || h <= 0 || b * h > 65535 || grid_h <= 0 || grid_w <= 0 ||
-      static_cast<long long>(grid_h) * grid_w != n)
+  if ((d != 64 && d != HEAD_DIM_WIDE) || n <= 0 || b <= 0 || h <= 0 || b * h > 65535 || grid_h <= 0 ||
+      grid_w <= 0 || static_cast<long long>(grid_h) * grid_w != n)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides sq{sq_b, sq_h, sq_t}, sk{sk_b, sk_h, sk_t}, sv{sv_b, sv_h, sv_t};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= T_MAX) {
     if (grid_h + grid_w > RES_HW_MAX) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_resident<true, false>(q, k, v, o, sq, sk, sv, b, h, n, scale,
-                                        RelPos{static_cast<const float*>(bias_h), static_cast<const float*>(bias_w),
-                                               grid_h, grid_w},
-                                        s);
+    const RelPos rp{static_cast<const float*>(bias_h), static_cast<const float*>(bias_w), grid_h, grid_w};
+    return d == 64 ? launch_resident<true, false>(q, k, v, o, sq, sk, sv, b, h, n, scale, rp, s)
+                   : launch_resident<true, false, HEAD_DIM_WIDE>(q, k, v, o, sq, sk, sv, b, h, n, scale, rp, s);
   }
   if (grid_w != G_W) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_global<true>(q, k, v, bias_h, bias_w, o, sq, sk, sv, b, h, n, grid_h, 0, scale, s);
+  return d == 64 ? launch_global<true>(q, k, v, bias_h, bias_w, o, sq, sk, sv, b, h, n, grid_h, 0, scale, s)
+                 : launch_global<true, HEAD_DIM_WIDE>(q, k, v, bias_h, bias_w, o, sq, sk, sv, b, h, n, grid_h, 0,
+                                                      scale, s);
 }
 
 // K2's two routes, each with the same arguments: q, k, v (b, h, t, 64) bf16
@@ -1104,11 +1272,13 @@ extern "C" int ha_flash_attention_long(const void* q, const void* k, const void*
 
 // The resident kernel's plan for (bh heads, t tokens) into out[0..7] (see
 // resident_report).  hw: grid_h + grid_w for K1 (the bias on), 0 for K2;
-// causal: K2's causal instantiation.  Returns a cudaError_t.
-extern "C" int ha_flash_attention_plan(int bh, int t, int hw, int causal, int* out) {
-  if (t <= 0 || t > T_MAX || hw < 0 || hw > RES_HW_MAX || (hw && causal))
+// causal: K2's causal instantiation; d: the head dim (80 with the bias
+// only).  Returns a cudaError_t.
+extern "C" int ha_flash_attention_plan(int bh, int t, int hw, int causal, int d, int* out) {
+  if (t <= 0 || t > T_MAX || hw < 0 || hw > RES_HW_MAX || (hw && causal) || (d != 64 && !(d == HEAD_DIM_WIDE && hw)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = hw       ? resident_report<true, false>(bh, t, hw, out)
+  const cudaError_t err = hw ? (d == 64 ? resident_report<true, false>(bh, t, hw, out)
+                                        : resident_report<true, false, HEAD_DIM_WIDE>(bh, t, hw, out))
                           : causal ? resident_report<false, true>(bh, t, 0, out)
                                    : resident_report<false, false>(bh, t, 0, out);
   return static_cast<int>(err);
@@ -1116,16 +1286,25 @@ extern "C" int ha_flash_attention_plan(int bh, int t, int hw, int causal, int* o
 
 // The global kernel's launch for (bh heads, n tokens), into out[0..3]:
 // blocks per head, blocks, blocks per SM (the occupancy calculator's), SMs.
-// rel_pos: K1's instantiation, else K2's.  Returns a cudaError_t.
-extern "C" int ha_flash_attention_global_plan(int bh, int n, int rel_pos, int* out) {
-  if (n <= T_MAX || bh <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// rel_pos: K1's instantiation at head dim d (64 or 80), else K2's (d = 64).
+// Returns a cudaError_t.
+extern "C" int ha_flash_attention_global_plan(int bh, int n, int rel_pos, int d, int* out) {
+  if (n <= T_MAX || bh <= 0 || (d != 64 && !(d == HEAD_DIM_WIDE && rel_pos)))
+    return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = rel_pos ? global_smem_allowance<true>() : global_smem_allowance<false>();
   if (err == cudaSuccess)
-    err = rel_pos ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, global_kernel<true>, G_THREADS, G_SMEM)
-                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, global_kernel<false>, G_THREADS, G_SMEM);
+    err = !rel_pos   ? global_smem_allowance<false>()
+          : d == 64 ? global_smem_allowance<true>()
+                    : global_smem_allowance<true, HEAD_DIM_WIDE>();
+  if (err == cudaSuccess)
+    err = !rel_pos ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, global_kernel<false>, G_THREADS,
+                                                                   GTile<64>::SMEM)
+          : d == 64
+              ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, global_kernel<true>, G_THREADS, GTile<64>::SMEM)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, global_kernel<true, HEAD_DIM_WIDE>, G_THREADS,
+                                                              GTile<HEAD_DIM_WIDE>::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = (n + G_BQ - 1) / G_BQ;
   out[1] = out[0] * bh;

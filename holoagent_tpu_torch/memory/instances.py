@@ -176,6 +176,32 @@ def frame_instances(
     )
 
 
+def recompute_coarse_keys(scene, inst: InstanceSet) -> InstanceSet:
+    """Rebuild each instance's coarse key set, its count and its dilated
+    signature from the scene's voxel positions (the reference's
+    ``recompute_coarse_keys``).  The production fold runs
+    ``coarse_only=True``, under which an instance without coarse keys never
+    merges; a mapper state saved without them (or with the stale widths)
+    reloads through this (``memory/checkpoint.py``).  Rows are scene rows,
+    and a row's coarse key depends only on its mean position, so the sets
+    equal those a fresh run holds."""
+    i_cap, k_cap = inst.rows.shape
+    vrows = inst.rows != I32_MAX
+    safe = inst.rows.clamp(0, scene.key.shape[0] - 1).to(torch.int64)
+    pts = scene.points()[safe]  # (I, K, 3)
+    cgrid = vox.GridSpec(scene.grid.voxel_size * COARSE_FACTOR, scene.grid.origin)
+    ck = vox.keys_of(pts.reshape(-1, 3), vrows.reshape(-1), cgrid)
+    groups = torch.arange(i_cap, dtype=torch.int32, device=inst.rows.device)[:, None].expand(i_cap, k_cap).reshape(-1)
+    valid = (vrows & inst.valid[:, None]).reshape(-1)
+    ckeys, ccounts = group_unique(groups, ck, valid, num_groups=i_cap, capacity=k_cap)
+    ckeys = _where_rows(inst.valid, ckeys, I32_MAX)
+    return inst._replace(
+        ckeys=ckeys,
+        ccount=torch.where(inst.valid, ccounts, torch.zeros_like(ccounts)),
+        dsig=_dilated_signature(ckeys),
+    )
+
+
 # ---------------------------------------------------------------------------
 # Merge round
 # ---------------------------------------------------------------------------

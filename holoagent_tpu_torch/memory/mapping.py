@@ -3,20 +3,22 @@
 
 Per frame: backproject -> scene insert -> SAM masks (mask stage) -> CLIP
 crop features (clip stage) -> per-pixel feature fusion -> per-frame
-instances -> instance fold (paired or sequential).  ``finalize`` runs the
-final merge round, the per-instance feature refinement and the density
-filter.  Scene and instance state stay on the device.
+instances -> instance fold (paired, sequential or hierarchical).
+``finalize`` drains the hierarchical fold, then runs the final merge round,
+the per-instance feature refinement and the density filter.  Scene and
+instance state stay on the device.  With ``extract_frames_per_dispatch`` >
+1, ``run`` extracts the keyframes in groups (``extract_frames_batched``:
+one SAM encoder pass and one CLIP encode a group) and integrates them one
+by one in frame order.
 
-Not ported yet: the ``hierarchical`` fold and the batched ``run``
-(``extract_frames_per_dispatch`` > 1).  The reference's fused single-program
-frame step (``fused_frame_step``) gives the same results as its staged path,
-which is the one the port runs.
+The reference's fused single-program frame step (``fused_frame_step``)
+gives the same results as its staged path, which is the one the port runs.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -34,6 +36,7 @@ from ..perception.extractor import (
     FrameFeatures,
     extract_frame_features,
     extract_frame_features_tiered,
+    extract_frames_batched,
 )
 from ..utils.camera import Pinhole
 from ..utils.timing import StageTimer, stage
@@ -75,10 +78,6 @@ class Mapper:
         clip_variant: Optional[clip_mod.CLIPVariant] = None,
     ):
         p = cfg.pipeline
-        if p.merge_type not in ("paired", "sequential"):
-            raise NotImplementedError(f"merge_type {p.merge_type!r} is not ported")
-        if p.extract_frames_per_dispatch != 1:
-            raise NotImplementedError("batched extraction (extract_frames_per_dispatch > 1) is not ported")
         self.device = resolve(device)
         dtype = dtype_of(cfg.models.clip.dtype)
         for name, model in (("clip", clip), ("sam", sam)):
@@ -102,6 +101,7 @@ class Mapper:
         self.keyframes: List[RGBDFrame] = []
         self._kf_feats: List[torch.Tensor] = []
         self._frames_since_full = 0  # paired fold: frames since the last full round
+        self._hier_slots: Dict[int, InstanceSet] = {}  # hierarchical fold: one partial set a tree height
 
     def _pixel_stride(self, frame: RGBDFrame) -> int:
         s = self.cfg.pipeline.instance_pixel_stride
@@ -119,6 +119,22 @@ class Mapper:
         self.keyframes.append(frame)
         self._kf_feats.append(f_g.float())
 
+    def _extract_kw(self) -> dict:
+        """The extraction settings of the config (SAM's and the crop stage's)."""
+        sc, p = self.cfg.models.sam, self.cfg.pipeline
+        return dict(
+            points_per_side=sc.points_per_side,
+            pred_iou_thresh=sc.pred_iou_thresh,
+            stability_thresh=sc.stability_score_thresh,
+            min_area=float(sc.min_mask_region_area),
+            max_masks=sc.max_masks,
+            masked_weight=p.clip_masked_weight,
+            bbox_margin=float(p.clip_bbox_margin),
+            impl=p.extract_impl,
+            clip_impl=p.extract_clip_impl,
+            timer=self.timer,
+        )
+
     def _staged_step(self, frame: RGBDFrame, ff: Optional[FrameFeatures] = None):
         cfg, p, t = self.cfg, self.cfg.pipeline, self.timer
         with stage(t, "backproject"):
@@ -135,20 +151,7 @@ class Mapper:
             if self.clip is None or self.sam is None:
                 raise ValueError("a Mapper without towers needs the frame's FrameFeatures (ff)")
             extract_fn = extract_frame_features_tiered if p.extract_tiering else extract_frame_features
-            sc = cfg.models.sam
-            ff = extract_fn(
-                self.clip, self.sam, rgb,
-                points_per_side=sc.points_per_side,
-                pred_iou_thresh=sc.pred_iou_thresh,
-                stability_thresh=sc.stability_score_thresh,
-                min_area=float(sc.min_mask_region_area),
-                max_masks=sc.max_masks,
-                masked_weight=p.clip_masked_weight,
-                bbox_margin=float(p.clip_bbox_margin),
-                impl=p.extract_impl,
-                clip_impl=p.extract_clip_impl,
-                timer=t,
-            )
+            ff = extract_fn(self.clip, self.sam, rgb, **self._extract_kw())
         masks_flat = ff.masks.reshape(ff.masks.shape[0], -1)
         with stage(t, "fuse"):
             scene = scene_mod.fuse_pixel_features(scene, pix_rows, masks_flat, ff.valid, ff.f_masks)
@@ -162,7 +165,13 @@ class Mapper:
             )
         merge_kw = dict(bbox_pad=0.5 * p.voxel_size, coarse_only=True, max_extent=p.instance_max_extent_m)
         with stage(t, "merge"):
-            if p.merge_type == "paired":
+            if p.merge_type == "hierarchical":
+                # binary-counter fold: the frame's set enters at height 0;
+                # two sets of one height merge and carry to the next, so
+                # O(log F) partial sets stay resident (finalize drains them)
+                self._hier_push(finst, height=0)
+                instances = self.instances
+            elif p.merge_type == "paired":
                 instances = inst_mod.paired_merge_step(
                     self.instances, finst, p.init_overlap_thresh, p.iou_thresh, **merge_kw
                 )
@@ -180,15 +189,73 @@ class Mapper:
         return scene, instances, ff.f_global
 
     def run(self, dataset: RGBDDataset) -> MappedScene:
-        for i in range(0, len(dataset), self.cfg.pipeline.skip_frames):
-            self.process_frame(dataset[i])
+        """Integrate every ``skip_frames``-th frame, then finalize.  With
+        ``extract_frames_per_dispatch`` = bsz > 1, the keyframes are taken
+        in groups of bsz: a group of two or more is extracted at once
+        (``extract_frames_batched``, untiered), a last single frame by
+        ``process_frame`` (tiered when ``extract_tiering`` is set), as the
+        reference does; the frames are then integrated in their order."""
+        p = self.cfg.pipeline
+        idxs = list(range(0, len(dataset), p.skip_frames))
+        bsz = max(1, p.extract_frames_per_dispatch)
+        for s in range(0, len(idxs), bsz):
+            frames = [dataset[i] for i in idxs[s : s + bsz]]
+            if len(frames) == 1:
+                self.process_frame(frames[0])
+                continue
+            if self.clip is None or self.sam is None:
+                raise ValueError("batched extraction needs the towers")
+            images = torch.stack([self._tensor(f.rgb) for f in frames])
+            ffb = extract_frames_batched(self.clip, self.sam, images, **self._extract_kw())
+            for j, frame in enumerate(frames):
+                self.process_frame(frame, ff=FrameFeatures(*(a[j] for a in ffb)))
         return self.finalize()
+
+    def _hier_th(self, height: int) -> float:
+        """The hierarchical fold's overlap threshold at a tree height: it
+        decays with the height (the reference's per-level decay)."""
+        p = self.cfg.pipeline
+        return p.init_overlap_thresh - p.overlap_thresh_factor * height
+
+    def _hier_push(self, inst: InstanceSet, height: int) -> None:
+        """Binary-counter carry: merge equal-height partial sets upward."""
+        p = self.cfg.pipeline
+        out_cap = self.instances.rows.shape[0]
+        while height in self._hier_slots:
+            cat = inst_mod.concat(self._hier_slots.pop(height), inst)
+            inst = inst_mod.merge_round(
+                cat, self._hier_th(height), p.iou_thresh, min(out_cap, cat.rows.shape[0]),
+                bbox_pad=0.5 * p.voxel_size, coarse_only=True, max_extent=p.instance_max_extent_m,
+            )
+            height += 1
+        self._hier_slots[height] = inst
+
+    def _hier_drain(self) -> None:
+        """Fold the hierarchical fold's partial sets, lowest height first,
+        then the result into the instance table at the top height's
+        threshold."""
+        p = self.cfg.pipeline
+        kw = dict(bbox_pad=0.5 * p.voxel_size, coarse_only=True, max_extent=p.instance_max_extent_m)
+        out_cap = self.instances.rows.shape[0]
+        acc, h_max = None, 0
+        for h in sorted(self._hier_slots):
+            s = self._hier_slots[h]
+            h_max = max(h_max, h)
+            if acc is None:
+                acc = s
+            else:
+                cat = inst_mod.concat(acc, s)
+                acc = inst_mod.merge_round(cat, self._hier_th(h), p.iou_thresh, min(out_cap, cat.rows.shape[0]), **kw)
+        self._hier_slots = {}
+        self.instances = inst_mod.seq_merge_step(self.instances, acc, self._hier_th(h_max), p.iou_thresh, **kw)
 
     def finalize(self) -> MappedScene:
         p = self.cfg.pipeline
         t = self.timer
         with stage(t, "finalize"):
             with stage(t, "finalize.merge"):
+                if self._hier_slots:
+                    self._hier_drain()
                 # final merge pass, then drop tiny instances (< 10 rows)
                 inst = inst_mod.merge_round(
                     self.instances, p.init_overlap_thresh, p.iou_thresh,

@@ -10,14 +10,15 @@ kernel K2's causal mode on the card.
 ``quantize_clip`` gives the int8 (W8A8) image tower: its blocks become
 ``blocks_q8`` (``transformer.QBlock``) and every block matmul runs through
 kernel K3.  The text tower stays float, as the reference's ``quantize_clip``
-quantizes ``("visual",)`` only.  Checkpoint conversion is not ported yet
-(ROADMAP.md).
+quantizes ``("visual",)`` only.  ``convert_open_clip`` / ``load_checkpoint``
+map an open_clip state dict onto the port's two towers, with the
+reference's key map.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -152,13 +153,15 @@ def init_clip(
 
 
 @torch.no_grad()
-def quantize_clip(visual: CLIPVisual) -> CLIPVisual:
+def quantize_clip(visual: CLIPVisual, dtype: Optional[torch.dtype] = None) -> CLIPVisual:
     """Per-output-channel int8 quantization of the tower's blocks (W8A8,
     ``transformer.quantize_block_``): a new tower with ``blocks_q8`` in place
     of ``blocks``.  The block norms and biases and everything outside the
-    blocks stay float, in the tower's dtype (the scales of a bf16 tower are
-    computed in bf16, as the reference's on bf16 params)."""
-    out = CLIPVisual(visual.variant, dtype=visual.patch_w.dtype, device=visual.patch_w.device, quant=True)
+    blocks stay float, in `dtype` (default: the tower's).  The scales are
+    computed from the tower's own values: a bf16 tower's in bf16, as the
+    reference's on bf16 params; a converted checkpoint's in float32 (quantize
+    the float32 tower with `dtype` the working dtype), as the reference's."""
+    out = CLIPVisual(visual.variant, dtype=dtype or visual.patch_w.dtype, device=visual.patch_w.device, quant=True)
     for name, p in visual.named_parameters(recurse=False):
         getattr(out, name).copy_(p)
     for q, blk in zip(out.blocks_q8, visual.blocks):
@@ -318,3 +321,82 @@ def text_features_multi_template(
         feats.append(encode_text(text, chunk, impl=impl, dtype=dtype)[:n])
     f = torch.cat(feats)
     return f.reshape(len(labels), len(templates), -1).mean(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint conversion (torch / open_clip state dict)
+# ---------------------------------------------------------------------------
+
+
+def _open_clip_tree(state: Dict[str, torch.Tensor], variant: CLIPVariant) -> dict:
+    """The reference's CLIP parameter tree, numpy float32 with the blocks
+    stacked on a leading layer axis, from an open_clip state dict (the
+    reference's ``convert_open_clip`` key map: torch Linear weights (out,
+    in) transposed)."""
+    import numpy as np
+
+    def g(name):
+        t = state[name]
+        if hasattr(t, "detach"):
+            t = t.detach().float().cpu().numpy()
+        return np.asarray(t, np.float32)
+
+    def blocks(prefix, layers):
+        per = {
+            "ln1_g": "ln_1.weight", "ln1_b": "ln_1.bias", "wqkv": "attn.in_proj_weight", "bqkv": "attn.in_proj_bias",
+            "wo": "attn.out_proj.weight", "bo": "attn.out_proj.bias", "ln2_g": "ln_2.weight", "ln2_b": "ln_2.bias",
+            "w1": "mlp.c_fc.weight", "b1": "mlp.c_fc.bias", "w2": "mlp.c_proj.weight", "b2": "mlp.c_proj.bias",
+        }
+        transposed = ("wqkv", "wo", "w1", "w2")
+        return {
+            k: np.stack([g(f"{prefix}.{i}.{name}").T if k in transposed else g(f"{prefix}.{i}.{name}")
+                         for i in range(layers)])
+            for k, name in per.items()
+        }
+
+    conv = g("visual.conv1.weight")  # (W, 3, P, P)
+    return {
+        "visual": {
+            "patch_w": conv.transpose(2, 3, 1, 0).reshape(-1, conv.shape[0]),  # (P*P*3, W)
+            "cls": g("visual.class_embedding"),
+            "pos": g("visual.positional_embedding"),
+            "ln_pre_g": g("visual.ln_pre.weight"), "ln_pre_b": g("visual.ln_pre.bias"),
+            "blocks": blocks("visual.transformer.resblocks", variant.v_layers),
+            "ln_post_g": g("visual.ln_post.weight"), "ln_post_b": g("visual.ln_post.bias"),
+            "proj": g("visual.proj"),
+        },
+        "text": {
+            "tok_emb": g("token_embedding.weight"),
+            "pos": g("positional_embedding"),
+            "blocks": blocks("transformer.resblocks", variant.t_layers),
+            "ln_final_g": g("ln_final.weight"), "ln_final_b": g("ln_final.bias"),
+            "proj": g("text_projection"),
+        },
+    }
+
+
+def convert_open_clip(state: Dict[str, torch.Tensor], variant: CLIPVariant, dtype=torch.float32,
+                      device: DeviceLike = None) -> Tuple[CLIPVisual, CLIPText]:
+    """Map an open_clip CLIP state dict (torch tensors or numpy arrays) onto
+    the port's visual and text towers, in `dtype` on `device` (the card
+    unless the caller asks for the CPU), through ``bridge.py``.  The
+    reference's tree also carries ``logit_scale``, which no tower of the
+    port uses."""
+    from ..bridge import clip_from_jax, clip_text_from_jax
+
+    device = resolve(device)
+    tree = _open_clip_tree(state, variant)
+    return (clip_from_jax(tree, variant, device=device, dtype=dtype),
+            clip_text_from_jax(tree, variant, device=device, dtype=dtype))
+
+
+def load_checkpoint(path: str, variant: CLIPVariant, dtype=torch.float32,
+                    device: DeviceLike = None) -> Tuple[CLIPVisual, CLIPText]:
+    """Load an open_clip ``.bin`` / ``.pt`` torch checkpoint (a bare state
+    dict or one under ``state_dict``, keys with or without a ``module.``
+    prefix, as the reference unwraps them) and convert it."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in state:
+        state = state["state_dict"]
+    state = {k.removeprefix("module."): v for k, v in state.items()}
+    return convert_open_clip(state, variant, dtype=dtype, device=device)

@@ -13,14 +13,16 @@ prompt encoder.
 
 ``quantize_sam`` gives the int8 (W8A8) encoder: each block's qkv, proj,
 lin1 and lin2 become ``QLin`` (int8 weights, float32 scales) and run through
-kernel K3.  Checkpoint conversion is not ported yet (ROADMAP.md).
+kernel K3.  ``convert_sam`` / ``load_checkpoint`` map an official
+``sam_vit_*.pth`` state dict onto the port's SAM, with the reference's key
+map.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -499,13 +501,14 @@ ENCODER_Q8 = ("qkv", "proj", "lin1", "lin2")  # the linears quantize_sam quantiz
 
 
 @torch.no_grad()
-def quantize_sam(sam: SAM) -> SAM:
+def quantize_sam(sam: SAM, dtype: Optional[torch.dtype] = None) -> SAM:
     """Per-output-channel W8A8 quantization of the image encoder's block
     linears (qkv, proj, lin1, lin2): a new SAM whose other parameters (patch
-    embed, rel-pos tables, neck, prompt encoder, decoder) are copies.  As the
-    reference, the weights are quantized from their float32 values; biases
-    stay in the working dtype."""
-    out = SAM(sam.variant, dtype=sam.dtype, device=sam.encoder.patch_w.device, quant=True)
+    embed, rel-pos tables, neck, prompt encoder, decoder) are copies, in
+    `dtype` (default: `sam`'s).  As the reference, the weights are quantized
+    from their float32 values (a converted checkpoint's: quantize a float32
+    SAM with `dtype` the working dtype); biases stay in the working dtype."""
+    out = SAM(sam.variant, dtype=dtype or sam.dtype, device=sam.encoder.patch_w.device, quant=True)
     src = dict(sam.named_parameters())
     for name, p in out.named_parameters():
         if name in src:
@@ -550,13 +553,48 @@ def generate_masks(
     (max_masks, H', W') bool, logits, scores, boxes (max_masks, 4), valid,
     num.  H'xW' = `mask_hw` or the input resolution.  A `timer` records the
     sub-stages mask.encoder, mask.decoder, mask.nms and mask.select."""
-    v = sam.variant
-    dev = image01.device
-    h, w, _ = image01.shape
-    mask_hw = mask_hw or (h, w)
     with stage(timer, "mask.encoder"):
-        x = preprocess(image01[None], v.img_size)
-        emb = encode_image(sam.encoder, x, v, impl=impl)[0]  # (g, g, D)
+        x = preprocess(image01[None], sam.variant.img_size)
+        emb = encode_image(sam.encoder, x, sam.variant, impl=impl)[0]  # (g, g, D)
+    return _masks_from_embedding(sam, emb, image01.shape[:2], points_per_side, pred_iou_thresh, stability_thresh,
+                                 min_area, nms_iou, max_masks, mask_hw, timer)
+
+
+@torch.no_grad()
+def generate_masks_batched(
+    sam: SAM,
+    images01: torch.Tensor,  # (F, H, W, 3) float in [0,1]
+    points_per_side: int = 12,
+    pred_iou_thresh: float = 0.88,
+    stability_thresh: float = 0.95,
+    min_area: float = 100.0,
+    nms_iou: float = 0.7,
+    max_masks: int = 64,
+    mask_hw: Optional[Tuple[int, int]] = None,
+    impl: str = "xla",
+    timer: Optional[StageTimer] = None,
+):
+    """``generate_masks`` over F frames: the image encoder runs once over
+    the F images (its matmuls and attention at F times the batch), then the
+    decoder, NMS and selection run frame by frame.  Returns one dict a
+    frame, each equal to ``generate_masks`` on that frame."""
+    with stage(timer, "mask.encoder"):
+        x = preprocess(images01, sam.variant.img_size)
+        embs = encode_image(sam.encoder, x, sam.variant, impl=impl)  # (F, g, g, D)
+    return [
+        _masks_from_embedding(sam, emb, images01.shape[1:3], points_per_side, pred_iou_thresh, stability_thresh,
+                              min_area, nms_iou, max_masks, mask_hw, timer)
+        for emb in embs
+    ]
+
+
+def _masks_from_embedding(sam: SAM, emb: torch.Tensor, hw: Tuple[int, int], points_per_side: int,
+                          pred_iou_thresh: float, stability_thresh: float, min_area: float, nms_iou: float,
+                          max_masks: int, mask_hw: Optional[Tuple[int, int]], timer: Optional[StageTimer]):
+    """``generate_masks`` after the encoder: one image's (g, g, D) embedding
+    -> its fixed-budget masks (decoder, NMS, selection)."""
+    dev = emb.device
+    mask_hw = mask_hw or tuple(hw)
     with stage(timer, "mask.decoder"):
         logits, iou_pred = _decode_grid(sam, emb, points_per_side)
     with stage(timer, "mask.nms"):
@@ -610,3 +648,108 @@ def _decode_grid(sam: SAM, emb: torch.Tensor, points_per_side: int):
     )
     sparse = encode_points(sam.prompt, points, labels).to(emb.dtype)
     return decode_masks(sam.decoder, emb, pe, sparse, sam.prompt.no_mask.to(emb.dtype), v)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint conversion (official SAM torch state dict)
+# ---------------------------------------------------------------------------
+
+
+def _sam_tree(state: Dict[str, torch.Tensor], v: SAMVariant) -> dict:
+    """The reference's SAM parameter tree, numpy float32, from an official
+    state dict (the reference's ``convert_sam`` key map: torch Linear
+    weights (out, in) transposed, convolutions to HWIO)."""
+    import numpy as np
+
+    def g(name):
+        t = state[name]
+        if hasattr(t, "detach"):
+            t = t.detach().float().cpu().numpy()
+        return np.asarray(t, np.float32)
+
+    def lin(prefix):
+        return {"w": g(prefix + ".weight").T, "b": g(prefix + ".bias")}
+
+    def attn4(prefix):
+        return {"q": lin(prefix + ".q_proj"), "k": lin(prefix + ".k_proj"), "v": lin(prefix + ".v_proj"),
+                "o": lin(prefix + ".out_proj")}
+
+    blocks = []
+    for i in range(v.depth):
+        pre = f"image_encoder.blocks.{i}"
+        blocks.append({
+            "norm1_g": g(pre + ".norm1.weight"), "norm1_b": g(pre + ".norm1.bias"),
+            "qkv": lin(pre + ".attn.qkv"), "proj": lin(pre + ".attn.proj"),
+            "rel_h": g(pre + ".attn.rel_pos_h"), "rel_w": g(pre + ".attn.rel_pos_w"),
+            "norm2_g": g(pre + ".norm2.weight"), "norm2_b": g(pre + ".norm2.bias"),
+            "lin1": lin(pre + ".mlp.lin1"), "lin2": lin(pre + ".mlp.lin2"),
+        })
+    conv = g("image_encoder.patch_embed.proj.weight")  # (W, 3, p, p)
+    layer = "mask_decoder.transformer.layers"
+    return {
+        "encoder": {
+            "patch_w": conv.transpose(2, 3, 1, 0).reshape(-1, conv.shape[0]),
+            "patch_b": g("image_encoder.patch_embed.proj.bias"),
+            "pos": g("image_encoder.pos_embed")[0],
+            "blocks": blocks,
+            "neck_conv1": g("image_encoder.neck.0.weight").transpose(2, 3, 1, 0),
+            "neck_ln1_g": g("image_encoder.neck.1.weight"), "neck_ln1_b": g("image_encoder.neck.1.bias"),
+            "neck_conv2": g("image_encoder.neck.2.weight").transpose(2, 3, 1, 0),
+            "neck_ln2_g": g("image_encoder.neck.3.weight"), "neck_ln2_b": g("image_encoder.neck.3.bias"),
+        },
+        "prompt": {
+            "gauss": g("prompt_encoder.pe_layer.positional_encoding_gaussian_matrix").T,
+            "point_neg": g("prompt_encoder.point_embeddings.0.weight")[0],
+            "point_pos": g("prompt_encoder.point_embeddings.1.weight")[0],
+            "not_a_point": g("prompt_encoder.not_a_point_embed.weight")[0],
+            "no_mask": g("prompt_encoder.no_mask_embed.weight")[0],
+        },
+        "decoder": {
+            "iou_token": g("mask_decoder.iou_token.weight")[0],
+            "mask_tokens": g("mask_decoder.mask_tokens.weight"),
+            "layers": [
+                {
+                    "self_attn": attn4(f"{layer}.{i}.self_attn"),
+                    "norm1_g": g(f"{layer}.{i}.norm1.weight"), "norm1_b": g(f"{layer}.{i}.norm1.bias"),
+                    "cross_t2i": attn4(f"{layer}.{i}.cross_attn_token_to_image"),
+                    "norm2_g": g(f"{layer}.{i}.norm2.weight"), "norm2_b": g(f"{layer}.{i}.norm2.bias"),
+                    "mlp1": lin(f"{layer}.{i}.mlp.lin1"), "mlp2": lin(f"{layer}.{i}.mlp.lin2"),
+                    "norm3_g": g(f"{layer}.{i}.norm3.weight"), "norm3_b": g(f"{layer}.{i}.norm3.bias"),
+                    "cross_i2t": attn4(f"{layer}.{i}.cross_attn_image_to_token"),
+                    "norm4_g": g(f"{layer}.{i}.norm4.weight"), "norm4_b": g(f"{layer}.{i}.norm4.bias"),
+                }
+                for i in range(v.decoder_depth)
+            ],
+            "final_t2i": attn4("mask_decoder.transformer.final_attn_token_to_image"),
+            "norm_final_g": g("mask_decoder.transformer.norm_final_attn.weight"),
+            "norm_final_b": g("mask_decoder.transformer.norm_final_attn.bias"),
+            "up1_w": g("mask_decoder.output_upscaling.0.weight").transpose(2, 3, 0, 1),
+            "up1_b": g("mask_decoder.output_upscaling.0.bias"),
+            "up_ln_g": g("mask_decoder.output_upscaling.1.weight"),
+            "up_ln_b": g("mask_decoder.output_upscaling.1.bias"),
+            "up2_w": g("mask_decoder.output_upscaling.3.weight").transpose(2, 3, 0, 1),
+            "up2_b": g("mask_decoder.output_upscaling.3.bias"),
+            "hyper": [
+                {f"l{j + 1}": lin(f"mask_decoder.output_hypernetworks_mlps.{i}.layers.{j}") for j in range(3)}
+                for i in range(v.num_mask_tokens)
+            ],
+            "iou_head": {f"l{j + 1}": lin(f"mask_decoder.iou_prediction_head.layers.{j}") for j in range(3)},
+        },
+    }
+
+
+def convert_sam(state: Dict[str, torch.Tensor], v: SAMVariant, dtype=torch.float32,
+                device: DeviceLike = None) -> SAM:
+    """Map an official ``sam_vit_*.pth`` state dict (torch tensors or numpy
+    arrays) onto a port SAM in `dtype` on `device` (the card unless the
+    caller asks for the CPU), through ``bridge.load_flat``."""
+    from ..bridge import flatten, load_flat
+
+    model = SAM(v, dtype=dtype, device=device)
+    return load_flat(model, flatten(_sam_tree(state, v)))
+
+
+def load_checkpoint(path: str, v: SAMVariant, dtype=torch.float32, device: DeviceLike = None) -> SAM:
+    """Load an official SAM torch checkpoint and convert it (``convert_sam``)."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    return convert_sam(state, v, dtype=dtype, device=device)

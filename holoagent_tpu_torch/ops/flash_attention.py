@@ -13,8 +13,10 @@ tensor goes through a kernel or the wrapper raises.  Each wrapper counts
 its kernel launches in ``<wrapper>.launches``; while ``<wrapper>.trace`` is a
 list, it also appends CUDA events around each launch (see ``_cuda_build.launch``).
 
-The kernels take bf16 with D = 64.  Routes (``k1_route``, ``k2_route``, and
-``T_MAX``, the kernel's own limit):
+The kernels take bf16.  K2 takes head dim 64 (every CLIP tower and VLM);
+K1 takes 64 (SAM vit_b, vit_l) and 80 (vit_h), each route instantiated at
+both (``K1_HEAD_DIMS``); any other head dim raises.  Routes (``k1_route``,
+``k2_route``, and ``T_MAX``, the kernel's own limit):
 - K1, N <= ``T_MAX`` (the SAM windows): the resident kernel with the bias,
   for grids with h + w <= ``RES_HW_MAX``;
 - K1, N > ``T_MAX`` (the SAM global layers): the TMA + ``wgmma`` global
@@ -47,7 +49,8 @@ import torch
 from ._cuda_build import CudaLibrary, aligned_contiguous, check_input, kernel_input, launch
 
 NEG_INF = -1e30
-HEAD_DIM = 64  # the kernel's head dim (SAM vit_b and CLIP ViT-L/14 both use 64)
+HEAD_DIM = 64  # K2's head dim (CLIP ViT-L/14, the VLMs), and K1's for SAM vit_b and vit_l
+K1_HEAD_DIMS = (64, 80)  # K1's instantiations: 80 is SAM vit_h's (HEAD_DIM_WIDE of csrc/flash_attention.cu)
 T_MAX = 320  # longest N of the resident kernel: T_MAX of csrc/flash_attention.cu (a test holds them equal)
 GLOBAL_W = 64  # the grid width K1's global kernel takes (N > T_MAX): G_W of csrc/flash_attention.cu
 RES_HW_MAX = 128  # largest h + w of K1's resident route (N <= T_MAX): RES_HW_MAX of csrc/flash_attention.cu
@@ -95,8 +98,8 @@ LIB = CudaLibrary("flash_attention.cu", {
     "ha_flash_attention_2d": [_p, _p, _p, _p, _p, _p, *[_l] * 9, _i, _i, _i, _i, _i, _i, _f, _p],
     "ha_flash_attention_resident": [_p, _p, _p, _p, *[_l] * 9, _i, _i, _i, _i, _i, _f, _p],
     "ha_flash_attention_long": [_p, _p, _p, _p, *[_l] * 9, _i, _i, _i, _i, _i, _f, _p],
-    "ha_flash_attention_plan": [_i, _i, _i, _i, ctypes.POINTER(ctypes.c_int)],
-    "ha_flash_attention_global_plan": [_i, _i, _i, ctypes.POINTER(ctypes.c_int)],
+    "ha_flash_attention_plan": [_i, _i, _i, _i, _i, ctypes.POINTER(ctypes.c_int)],
+    "ha_flash_attention_global_plan": [_i, _i, _i, _i, ctypes.POINTER(ctypes.c_int)],
 })
 
 
@@ -138,16 +141,16 @@ def attention_output(b: int, h: int, t: int, d: int, dtype: torch.dtype, device)
     return torch.empty((b, t, h, d), dtype=dtype, device=device).transpose(1, 2)
 
 
-def resident_plan(bh: int, t: int, hw: int = 0, causal: bool = False) -> dict:
+def resident_plan(bh: int, t: int, hw: int = 0, causal: bool = False, d: int = HEAD_DIM) -> dict:
     """The resident kernel's launch for `bh` heads of `t` tokens on the
     current card: query tiles per block, blocks per head, blocks per SM
     (CUDA's occupancy calculator), SMs, registers a thread, shared memory a
     block in bytes, and the blocks per SM that the registers alone and the
     shared memory alone allow (the card's own figures).  `hw`: grid_h +
     grid_w for K1 (the bias staged too), 0 for K2; `causal`: K2's causal
-    instantiation."""
+    instantiation; `d`: the head dim (80 for K1 only)."""
     out = (ctypes.c_int * 8)()
-    err = LIB.load().ha_flash_attention_plan(bh, t, hw, int(causal), out)
+    err = LIB.load().ha_flash_attention_plan(bh, t, hw, int(causal), d, out)
     if err:
         raise RuntimeError(f"ha_flash_attention_plan failed: cudaError {err}")
     keys = ("tiles_per_block", "blocks_per_head", "blocks_per_sm", "sms", "regs", "smem", "blocks_by_regs",
@@ -155,21 +158,24 @@ def resident_plan(bh: int, t: int, hw: int = 0, causal: bool = False) -> dict:
     return dict(zip(keys, out))
 
 
-def global_plan(bh: int, n: int, rel_pos: bool = True) -> dict:
+def global_plan(bh: int, n: int, rel_pos: bool = True, d: int = HEAD_DIM) -> dict:
     """The global kernel's launch for `bh` heads of `n` tokens on the
-    current card, K1's (`rel_pos`) or K2's long route: blocks per head,
-    blocks, blocks per SM, SMs."""
+    current card, K1's (`rel_pos`, head dim `d`) or K2's long route: blocks
+    per head, blocks, blocks per SM, SMs."""
     out = (ctypes.c_int * 4)()
-    err = LIB.load().ha_flash_attention_global_plan(bh, n, int(rel_pos), out)
+    err = LIB.load().ha_flash_attention_global_plan(bh, n, int(rel_pos), d, out)
     if err:
         raise RuntimeError(f"ha_flash_attention_global_plan failed: cudaError {err}")
     return dict(zip(("blocks_per_head", "grid", "blocks_per_sm", "sms"), out))
 
 
-def k1_route(h: int, w: int) -> str:
-    """The kernel K1 launches for an h x w grid: "resident" for N = h*w <=
-    T_MAX and h + w <= RES_HW_MAX, "global" for N > T_MAX on a grid
-    GLOBAL_W wide; raises for any other grid."""
+def k1_route(h: int, w: int, d: int = HEAD_DIM) -> str:
+    """The kernel K1 launches for an h x w grid at head dim `d`: "resident"
+    for N = h*w <= T_MAX and h + w <= RES_HW_MAX, "global" for N > T_MAX on
+    a grid GLOBAL_W wide; raises for any other grid or a head dim not in
+    K1_HEAD_DIMS."""
+    if d not in K1_HEAD_DIMS:
+        raise ValueError(f"head dim {d}: K1 takes {K1_HEAD_DIMS}")
     if h * w <= T_MAX:
         if h + w > RES_HW_MAX:
             raise ValueError(f"grid {h}x{w}: K1's resident kernel takes h + w <= {RES_HW_MAX}")
@@ -215,9 +221,7 @@ def flash_attention_2d(
         raise ValueError(f"bias shapes {bias_h.shape} {bias_w.shape} for q {q.shape}")
     if q.device.type == "cpu":
         return flash_attention_2d_ref(q, k, v, bias_h, bias_w, grid_hw)
-    if d != HEAD_DIM:
-        raise ValueError(f"head dim {d}: the kernel takes {HEAD_DIM}")
-    k1_route(h, w)
+    k1_route(h, w, d)
     flat = q.dim() == 3
     if flat:
         q, k, v = q[None], k[None], v[None]
@@ -227,7 +231,7 @@ def flash_attention_2d(
     bias_w = kernel_input(bias_w, "bias_w", torch.float32)
     o = attention_output(b, heads, n, d, q.dtype, q.device)
     launch(
-        flash_attention_2d, (bh, h, w), torch.cuda.current_stream(q.device), LIB.load().ha_flash_attention_2d,
+        flash_attention_2d, (b, heads, h, w, d), torch.cuda.current_stream(q.device), LIB.load().ha_flash_attention_2d,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_h.data_ptr(), bias_w.data_ptr(), o.data_ptr(),
         *sq, *sk, *sv, b, heads, n, d, h, w, d**-0.5,
     )
@@ -254,7 +258,7 @@ def flash_attention(
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
     if d != HEAD_DIM:
-        raise ValueError(f"head dim {d}: the kernel takes {HEAD_DIM}")
+        raise ValueError(f"head dim {d}: K2 takes {HEAD_DIM}")
     entry = {"resident": "ha_flash_attention_resident", "long": "ha_flash_attention_long"}[k2_route(t, causal)]
     (q, sq), (k, sk), (v, sv) = strided_inputs(q, k, v)
     o = attention_output(b, h, t, d, q.dtype, q.device)

@@ -2,10 +2,10 @@
 
 The port's own copy of holoagent_tpu/utils/labels.py: the built-in
 vocabularies, the room types and their object affinities, file
-vocabularies under ``labels_dir``, and the same ``.npy`` cache layout.  Not
-copied: the vocabularies of the reference's ``vocab_data.json`` data asset
-and ``FIXTURE`` (the trained fixture towers' classes); asking for one raises
-``KeyError`` (ROADMAP.md).
+vocabularies under ``labels_dir``, the vocabularies of the reference's
+``vocab_data.json`` data asset (copied beside this module), ``FIXTURE``
+(the fixture towers' classes, ``training/zoo.py``), and the same ``.npy``
+cache layout.
 
 Capability parity with the reference's label_feats module
 (reference fsr_vln/memory/hmsg/utils/label_feats.py:11-126: per-vocabulary
@@ -164,20 +164,64 @@ _BUILTIN: Dict[str, Tuple[str, ...]] = {
     "ROOM_TYPES": DEFAULT_ROOM_TYPES,
 }
 
+# Full vocabularies shipped as a data asset, ``vocab_data.json`` beside this
+# module (a copy of the reference's): the reference's label lists and label
+# files, under the names its ``get_label_feats`` selector uses.  Loaded at
+# first use.
+_DATA_VOCABS = {
+    "HM3DSEM": "HM3D_FULL",  # the full HM3D semantic vocabulary
+    "HM3D_FULL": "HM3D_FULL",
+    "FINALLABEL": "FINALLABEL",
+    "IMAGENET21K": "IMAGENET21K",
+    "MATTERPORT80": "MATTERPORT80",
+    "MATTERPORT160": "MATTERPORT160",
+    "MATTERPORT21": "MATTERPORT21",
+    "COCO_STUFF": "COCO_STUFF",
+    "MATTERPORT_GT": "MATTERPORT_GT",
+    "MATTERPORT_ROOMS": "MATTERPORT_ROOMS",
+    "HM3DSEM_ROOMS": "HM3DSEM_ROOMS",
+    "HM3DSEM_FREQUENT": "HM3DSEM_FREQUENT",
+}
+_vocab_data_cache: Dict[str, Tuple[str, ...]] = {}
+
+
+def _load_data_vocab(key: str) -> Tuple[str, ...]:
+    """One vocabulary of ``vocab_data.json``; a mapping (OPENVOCAB_*) becomes
+    the sorted set of its keys and values."""
+    if key not in _vocab_data_cache:
+        data = json.loads(Path(__file__).with_name("vocab_data.json").read_text())
+        for k, v in data.items():
+            if isinstance(v, dict):
+                flat = []
+                for kk, vv in v.items():
+                    flat.append(kk)
+                    flat.extend(vv)
+                v = sorted(set(flat))
+            _vocab_data_cache[k] = tuple(v)
+    return _vocab_data_cache[key]
+
 
 def load_vocabulary(
     name: str, labels_dir: Optional[str | Path] = None
 ) -> Tuple[str, ...]:
-    """Resolve a vocabulary by name: built-ins first, else
+    """Resolve a vocabulary by name: built-ins first, then ``FIXTURE`` (the
+    fixture towers' classes), then the shipped data asset, else
     `<labels_dir>/<name>.txt|.json|.csv` (one label per line / json list /
     csv first col)."""
     if name.upper() in _BUILTIN:
         return _BUILTIN[name.upper()]
+    if name.upper() == "FIXTURE":
+        from ..training.zoo import fixture_labels
+
+        return tuple(fixture_labels())
+    if name.upper() in _DATA_VOCABS:
+        return _load_data_vocab(_DATA_VOCABS[name.upper()])
+    if name.upper() == "OPENVOCAB_MATTERPORT":
+        return _load_data_vocab("OPENVOCAB_MATTERPORT")
     if labels_dir is None:
         raise KeyError(
             f"unknown vocabulary {name!r}; built-ins: {sorted(_BUILTIN)}; "
-            "pass labels_dir for file-based vocabularies (the data-asset "
-            "vocabularies are not ported, ROADMAP.md)"
+            "pass labels_dir for file-based vocabularies"
         )
     base = Path(labels_dir)
     for ext in (".txt", ".json", ".csv"):

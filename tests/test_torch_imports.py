@@ -20,6 +20,7 @@ from holoagent_tpu_torch import device as tdevice
 from holoagent_tpu_torch.apps import build_map, eval_protocol, long_query_bench, query_bench, serving_bench
 from holoagent_tpu_torch.apps.common import load_models, tokenizer
 from holoagent_tpu_torch.config import from_dict
+from holoagent_tpu_torch.memory import checkpoint as tckpt
 from holoagent_tpu_torch.memory.hmsg import HMSGraph
 from holoagent_tpu_torch.memory.mapping import Mapper
 from holoagent_tpu_torch.models import clip as tclip
@@ -113,6 +114,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     for entry in (lambda: eval_protocol.run_one(0), lambda: eval_protocol.run(seeds=1, neural=False),
                   lambda: query_bench.run("no-graph", [], cfg), lambda: long_query_bench.run("no-graph", "", cfg),
                   lambda: oracle_frame_features(np.zeros((4, 4), np.int32), np.zeros((4, 4), np.int32), ["a"], 8)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
+    for entry in (lambda: tckpt.load_mapper_state("no-state.pt"), lambda: tckpt.load_params("no-params.pt"),
+                  lambda: tsam.convert_sam({}, tsam.VARIANTS["test-tiny"]),
+                  lambda: tclip.convert_open_clip({}, tclip.VARIANTS["test-tiny"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             entry()
     tv = tvlm.VARIANTS["test-tiny"]

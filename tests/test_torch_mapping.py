@@ -134,8 +134,11 @@ def test_end_to_end_run(setup):
 
 def test_mapper_rules(setup):
     _, _, clip_t, sam_t, ds, _ = setup
-    with pytest.raises(NotImplementedError):
-        Mapper(from_dict({**CFG, "pipeline": {"merge_type": "hierarchical"}}), clip_t, sam_t, device="cpu")
+    # the hierarchical fold and batched extraction are ported: both configure a Mapper
+    # (tests/test_torch_checkpoint.py and tests/test_torch_batched.py hold them to the reference)
+    hier = Mapper(from_dict({**CFG, "pipeline": {"merge_type": "hierarchical", "extract_frames_per_dispatch": 2}}),
+                  clip_t, sam_t, device="cpu")
+    assert hier.cfg.pipeline.merge_type == "hierarchical" and hier._hier_slots == {}
     bf16 = {**CFG, "models": {**CFG["models"], "clip": {"type": "test-tiny", "dtype": "bfloat16"}}}
     with pytest.raises(ValueError):
         Mapper(from_dict(bf16), clip_t, sam_t, device="cpu")

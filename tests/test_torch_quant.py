@@ -38,6 +38,7 @@ from holoagent_tpu_torch.models import transformer as ttfm
 from holoagent_tpu_torch.ops import _cuda_build as cuda_build
 from holoagent_tpu_torch.ops import quant_matmul as tqm
 from holoagent_tpu_torch.perception import extractor as text
+from test_torch_checkpoint import _sam_state  # the official-SAM exporter; pytest puts tests/ on the path
 
 torch.set_num_threads(1)
 
@@ -321,7 +322,7 @@ def test_build_key_tracks_the_k3_source():
 
 
 @pytest.mark.parametrize("quant", [False, True])
-def test_load_models_builds_the_configured_towers(quant):
+def test_load_models_builds_the_configured_towers(quant, tmp_path):
     cfg = from_dict({"models": {"clip": {"type": "test-tiny", "dtype": "float32", "quant": quant},
                                 "sam": {"type": "test-tiny", "dtype": "float32", "quant": quant}}})
     clip, sam, cv, sv, _ = load_models(cfg, device="cpu")
@@ -332,6 +333,14 @@ def test_load_models_builds_the_configured_towers(quant):
         assert torch.equal(clip.blocks_q8[1].w2_q8, ref.blocks_q8[1].w2_q8)
     feats = tclip.encode_image(clip, torch.zeros(2, 32, 32, 3))
     assert torch.isfinite(feats).all()
-    cfg.models.sam.checkpoint = "sam.pth"
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        load_models(cfg, device="cpu")
+    # a checkpoint path: the SAM tower is the converted checkpoint, quantized when `quant` is set
+    # (tests/test_torch_checkpoint.py holds the converters and load_models to the reference)
+    state = _sam_state(_np_tree(jsam.init_sam(jax.random.key(4), jsam.VARIANTS["test-tiny"])), sv)
+    torch.save(state, tmp_path / "sam.pth")
+    cfg.models.sam.checkpoint = str(tmp_path / "sam.pth")
+    _, sam_ck, _, _, _ = load_models(cfg, device="cpu")
+    want = tsam.convert_sam(state, sv, device="cpu")
+    want = tsam.quantize_sam(want) if quant else want
+    assert sam_ck.quant == quant and not torch.equal(sam_ck.encoder.patch_w, sam.encoder.patch_w)
+    for k, p in want.named_parameters():
+        assert torch.equal(dict(sam_ck.named_parameters())[k], p), k

@@ -27,6 +27,7 @@ from holoagent_tpu_torch.memory.hmsg import HMSGraph
 from holoagent_tpu_torch.models import clip as tclip
 from holoagent_tpu_torch.ops import retrieval as tret
 from holoagent_tpu_torch.query import FSRQueryEngine, RuleParser
+from holoagent_tpu_torch.training.zoo import fixture_labels
 from holoagent_tpu_torch.utils.labels import DEFAULT_ROOM_TYPES, SCANNET_LABELS_20
 
 torch.set_num_threads(1)
@@ -215,13 +216,13 @@ def test_build_map_run_then_query(tmp_path):
     stats = json.loads((tmp_path / "s" / "build_stats.json").read_text())
     assert stats["frames"] == 6 and stats["rooms"] == len(g.rooms) >= 1
     assert stats["views"] == len(g.views) >= 6  # every keyframe, and a nearest one for a room without
-    assert sorted(p.name for p in (tmp_path / "label_cache").iterdir()) == ["ROOM_TYPES_test-tiny.npy",
-                                                                            "SCANNET20_test-tiny.npy"]
+    assert sorted(p.name for p in (tmp_path / "label_cache").iterdir()) == ["FIXTURE_test-tiny.npy",
+                                                                            "ROOM_TYPES_test-tiny.npy"]
     loaded = HMSGraph.load(graph_dir)
     assert [(r.room_id, r.name) for r in loaded.rooms] == [(r.room_id, r.name) for r in g.rooms]
     assert [(o.object_id, o.name) for o in loaded.objects] == [(o.object_id, o.name) for o in g.objects]
     assert all(r.name in DEFAULT_ROOM_TYPES for r in g.rooms)
-    assert all(o.name in SCANNET_LABELS_20 for o in g.objects)  # FIXTURE fell back to SCANNET20
+    assert all(o.name in fixture_labels() for o in g.objects)  # obj_labels FIXTURE: the fixture vocabulary
     eng = FSRQueryEngine(loaded, models[4], tokenizer(), device="cpu")
     for q in INSTRUCTIONS[:4]:
         floor, rooms, objs, res = eng.query_hierarchy(q)

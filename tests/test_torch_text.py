@@ -140,9 +140,8 @@ def test_vocabularies_and_label_cache(towers, tmp_path):
         assert tlabels.load_vocabulary(name) == jlabels.load_vocabulary(name)
     assert tlabels.OBJECT_ROOM_AFFINITY == jlabels.OBJECT_ROOM_AFFINITY
     assert tlabels.DEFAULT_ROOM_TYPES == jlabels.DEFAULT_ROOM_TYPES
-    for name in ("FIXTURE", "HM3DSEM"):  # the data-asset vocabularies are not ported
-        with pytest.raises(KeyError):
-            tlabels.load_vocabulary(name)
+    for name in ("FIXTURE", "HM3DSEM"):  # the fixture and data-asset vocabularies
+        assert tlabels.load_vocabulary(name) == jlabels.load_vocabulary(name)
     (tmp_path / "mine.csv").write_text("name,id\nlamp,1\nrug,2\n")
     (tmp_path / "list.json").write_text(json.dumps(["a", "b"]))
     for name in ("mine", "list"):
