@@ -71,8 +71,27 @@ Phases (any failure exits non-zero, with no result line):
      three_room oracle frames through a Mapper with the hierarchical fold,
      its state saved and loaded on the card (every tensor equal), and a
      state saved without coarse keys reloaded with them recomputed (equal
-     to recompute_coarse_keys; to the live sets off the cell faces).
-     Per-stage ms, frames/s or ms/keyframe, peak memory; the kernels' launch
+     to recompute_coarse_keys; to the live sets off the cell faces);
+     (n) the deployment configs through their loaders, from dicts that
+     mirror config/{hm3dsem_benchmark,replica_office,horizon_ic4f}.yaml
+     (random weights; accept-all gates; flash, tiered extraction): two
+     synthetic scenes written in HM3DSem layout (rendered with the loader's
+     K, poses stored y-up, a GT scene_info JSON each) through
+     apps.batch_map.run_batch with SAM vit_h, each evaluated; a Replica
+     scene at 1200x680 (cam_params.json, depth at 6553.5) and a Horizon
+     scene (d435i.yaml, w2c TUM poses.txt, float-timestamp images/) through
+     apps.build_map.run; every loaded frame held to the written one, the
+     first HM3DSem scene's loader run held to an in-memory run of the same
+     frames, K1 and K2 launches held to the keyframes' and the label text
+     batches' counts; (o) apps.retrieval_bench at its defaults, its rows
+     held to the float64 exact top-k; (p) LLMParser over a CachedLLMClient
+     on the ContinuousBatcher with vlm-small, K2 held to its prefill calls,
+     a second pass answered from the cache; (q) the pose solvers (PnP at
+     4096 points, pnp_batch at B = 64, a 64-pose graph loop, icp_multiscale
+     of a 20k-point scan), each against its known pose and the port's CPU
+     run, timed as CUDA graphs against the eager solves, one PnP solve of
+     each under torch.profiler.  A [time] line after each phase says when
+     it ended.  Per-stage ms, frames/s or ms/keyframe, peak memory; the kernels' launch
      counts and their device time inside each run.  Every K1, K2 and K3
      shape a path launched that no case of phase 3 held gets its own case
      before the kernels line.
@@ -94,16 +113,23 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from holoagent_tpu_torch.apps import build_map, eval_protocol, query_bench, serving_bench  # noqa: E402
-from holoagent_tpu_torch.apps.common import load_models, tokenizer  # noqa: E402
+from holoagent_tpu_torch.apps import batch_map, build_map, eval_protocol, query_bench, retrieval_bench, serving_bench  # noqa: E402,E501
+from holoagent_tpu_torch.apps.common import load_dataset, load_models, tokenizer  # noqa: E402
 from holoagent_tpu_torch.config import from_dict  # noqa: E402
-from holoagent_tpu_torch.dataloader import SyntheticDataset, SyntheticScene  # noqa: E402
+from holoagent_tpu_torch.dataloader import RGBDFrame, SyntheticDataset, SyntheticScene  # noqa: E402
+from holoagent_tpu_torch.dataloader.export import hm3dsem_k, write_hm3dsem, write_horizon, write_replica  # noqa: E402
+from holoagent_tpu_torch.dataloader.hm3dsem import HM3DSemDataset  # noqa: E402
+from holoagent_tpu_torch.dataloader.horizon import HorizonDataset  # noqa: E402
+from holoagent_tpu_torch.dataloader.replica import ReplicaDataset  # noqa: E402
+from holoagent_tpu_torch.eval import gt_from_synthetic  # noqa: E402
 from holoagent_tpu_torch.eval.instruction_sets import three_room_instructions  # noqa: E402
 from holoagent_tpu_torch.memory import checkpoint as ckpt_mod  # noqa: E402
 from holoagent_tpu_torch.memory import instances as inst_mod  # noqa: E402
@@ -115,13 +141,18 @@ from holoagent_tpu_torch.models import sam as sam_mod  # noqa: E402
 from holoagent_tpu_torch.models import transformer as tfm  # noqa: E402
 from holoagent_tpu_torch.models import vlm as vlm_mod  # noqa: E402
 from holoagent_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from holoagent_tpu_torch.ops import solvers  # noqa: E402
+from holoagent_tpu_torch.ops.backproject import backproject  # noqa: E402
 from holoagent_tpu_torch.ops import quant_matmul as qm  # noqa: E402
 from holoagent_tpu_torch.ops import voxel as voxel_mod  # noqa: E402
 from holoagent_tpu_torch.ops.compact import I32_MAX  # noqa: E402
 from holoagent_tpu_torch.perception.extractor import FrameFeatures, extract_frame_features_tiered  # noqa: E402
 from holoagent_tpu_torch.perception.oracle import oracle_frame_features  # noqa: E402
-from holoagent_tpu_torch.query import ClipVLM, FSRQueryEngine  # noqa: E402
-from holoagent_tpu_torch.utils.labels import DEFAULT_ROOM_TYPES, SCANNET_LABELS_20  # noqa: E402
+from holoagent_tpu_torch.query import ClipVLM, FSRQueryEngine, LLMParser, ParsedQuery, llm_client  # noqa: E402
+from holoagent_tpu_torch.serving import ContinuousBatcher  # noqa: E402
+from holoagent_tpu_torch.utils.camera import Pinhole, project  # noqa: E402
+from holoagent_tpu_torch.utils.geometry import exp_se3, invert_pose, log_se3, transform_points  # noqa: E402
+from holoagent_tpu_torch.utils.labels import DEFAULT_ROOM_TYPES, SCANNET_LABELS_20, load_vocabulary  # noqa: E402
 from holoagent_tpu_torch.utils.timing import StageTimer  # noqa: E402
 
 # H100 SXM published peaks (dense tensor cores: bf16, int8; HBM3)
@@ -187,6 +218,15 @@ def check(cond: bool, msg: str) -> None:
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+START = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """When a phase ended, in seconds since the script started (the run's
+    time budget, by phase)."""
+    log(f"[time] {what} ended {time.perf_counter() - START:.1f} s after the start")
 
 
 HOLD_CYCLES = 5_000_000  # about 2.5 ms of the card's clock: longer than the host takes to enqueue a sample
@@ -1337,6 +1377,569 @@ def hierarchical_path(state_dir, tag):
     return dict(launches=launches, in_path=in_path, nf=len(frames))
 
 
+# ---------------------------------------------------------------------------
+# (n)-(q): the deployment configs through their loaders, retrieval_bench,
+# LLMParser served by the batcher, the pose solvers
+# ---------------------------------------------------------------------------
+
+_DEPLOY_SAM = {"checkpoint": "", "points_per_side": 12, "pred_iou_thresh": 0.88, "stability_score_thresh": 0.95,
+               "min_mask_region_area": 100, "max_masks": 64}
+_DEPLOY_PIPELINE = {
+    "voxel_size": 0.05, "init_overlap_thresh": 0.75, "overlap_thresh_factor": 0.025, "iou_thresh": 0.05,
+    "clip_masked_weight": 0.4418, "clip_bbox_margin": 50, "feature_dbscan_eps": 0.01, "min_pcd_points": 100,
+    "grid_resolution": 0.05, "merge_type": "paired", "point_capacity": 1048576, "mask_point_capacity": 4096,
+    "instance_capacity": 512,
+}
+
+
+def _deployment(main, sam_type, skip_frames, obj_labels):
+    return {"main": main,
+            "models": {"clip": {"type": "ViT-L-14", "checkpoint": "", "dtype": "bfloat16"},
+                       "sam": {"type": sam_type, **_DEPLOY_SAM}},
+            "pipeline": {**_DEPLOY_PIPELINE, "skip_frames": skip_frames, "obj_labels": obj_labels},
+            "mesh": {"data": -1, "model": 1}}
+
+
+# config/{hm3dsem_benchmark,replica_office,horizon_ic4f}.yaml, field for field
+# (no YAML on the card), checkpoints left empty: random weights from main.seed
+HM3DSEM_YAML = _deployment({"dataset": "hm3dsem", "scene_id": "hm3d_val", "dataset_path": "/data/hm3dsem/walks",
+                            "depth_cut": 10.0, "save_path": "/data/scene_graphs/hm3d"}, "vit_h", 10, "HM3D")
+REPLICA_YAML = _deployment({"dataset": "replica", "scene_id": "office0", "dataset_path": "/data/replica",
+                            "depth_cut": 8.0, "save_path": "/data/scene_graphs/replica"}, "vit_b", 4, "SCANNET20")
+HORIZON_YAML = _deployment({"dataset": "horizon", "scene_id": "icra_ic4f", "dataset_path": "/data/rgbd_datasets",
+                            "depth_cut": 10.0, "save_path": "/data/scene_graphs"}, "vit_h", 8, "SCANNET200")
+# What every deployment run sets beyond its yaml, as config/synthetic_tpu_3room.yaml
+# does for random weights: accept-all mask and instance gates (a random-init
+# SAM's scores pass none of the yamls' 0.88 / 0.95, and its frame-scale blobs
+# none of the 0.5 area / 4 m extent gates), and the production extraction,
+# which the yamls leave at their defaults (plain attention, untiered)
+RANDOM_WEIGHTS = {"sam": {"pred_iou_thresh": -10.0, "stability_score_thresh": 0.0},
+                  "pipeline": {"instance_max_area_frac": 1.0, "instance_max_extent_m": 1.0e9,
+                               "extract_impl": "flash", "extract_clip_impl": "flash", "extract_tiering": True}}
+# (layout, frames in the walk, skip_frames) of the HM3DSem scenes list; the
+# benchmark's own walks hold hundreds of frames at skip_frames 10-30.  The
+# walks give 12 and 8 keyframes, Replica's and Horizon's 12 each at their
+# yamls' skip_frames (4 and 8; the orbit drops a few poses of 96), so the
+# one-time finalize at the yamls' capacities (1M points, 512 instances)
+# does not make most of a scene's map time
+HM3D_SCENES = (("three_room", 24, 2), ("two_room", 16, 2))
+REPLICA_FRAMES, HORIZON_FRAMES = 45, 96
+HM3D_HW, REPLICA_HW, HORIZON_HW = (480, 640), (680, 1200), (480, 640)
+QUAT_POSE_ATOL = 2e-6  # a pose through a float64 quaternion and back to float32
+
+
+def deployment_config(yaml, root):
+    """`yaml`'s dict with its data and graphs under `root`, and RANDOM_WEIGHTS."""
+    d = copy.deepcopy(yaml)
+    d["main"].update(dataset_path=os.path.join(root, "data"), save_path=os.path.join(root, "graphs"))
+    d["models"]["sam"].update(RANDOM_WEIGHTS["sam"])
+    d["pipeline"].update(RANDOM_WEIGHTS["pipeline"])
+    return d
+
+
+def render_walk(scene, n_frames, hw, k, seed=SEED):
+    """`n_frames` frames of SyntheticDataset's orbit through `scene`, rendered
+    with the loader's own K (host threads: set-up, not mapping time).
+    Returns (frames, instance images)."""
+    poses = SyntheticDataset(scene=scene, num_frames=n_frames, hw=hw, seed=seed).poses
+    with ThreadPoolExecutor(8) as ex:
+        out = list(ex.map(lambda p: scene.render(p.astype(np.float64), k, hw), poses))
+    return [RGBDFrame(rgb, depth, p, k) for (rgb, depth, _, _), p in zip(out, poses)], [o[2] for o in out]
+
+
+def loader_frames_equal(tag, ds, back, pose_atol=0.0):
+    """Every frame the loader reads against the writer's quantized frames:
+    rgb, depth and K bit for bit, the pose within `pose_atol` (0: exact)."""
+    check(len(ds) == len(back), f"{tag}: the loader reads {len(ds)} frames, {len(back)} written")
+    worst = 0.0
+    for i, b in enumerate(back):
+        f = ds[i]
+        for name in ("rgb", "depth", "k"):
+            a, e = getattr(f, name), getattr(b, name)
+            check(a.dtype == e.dtype and np.array_equal(a, e), f"{tag}: frame {i}: {name} differs from the written")
+        check(f.pose.dtype == np.float32, f"{tag}: frame {i}: pose dtype")
+        worst = max(worst, float(np.abs(f.pose - b.pose).max()))
+    check(worst <= pose_atol, f"{tag}: pose off by {worst:.3e} > {pose_atol:.1e}")
+    log(f"[{tag}] {len(ds)} frames through {type(ds).__name__}: rgb, depth, K equal to the written bit for bit; "
+        f"poses within {worst:.3e} (limit {pose_atol:.1e})")
+
+
+def label_batches(*vocabs) -> int:
+    """Padded text batches of 256 prompts the label features of `vocabs` take."""
+    return sum(math.ceil(len(load_vocabulary(v)) * len(clip_mod.TEMPLATES) / 256) for v in vocabs)
+
+
+@contextlib.contextmanager
+def recording_mapping(models, mapped, feats, finals=None):
+    """Record the models batch_map loads, every (config, MappedScene) of a
+    Mapper.run and every tiered extraction's FrameFeatures, in order, and
+    into `finals` the seconds of each Mapper.finalize (synchronised)."""
+    load, run, tiered, fin = (batch_map.load_models, Mapper.run, mapping_mod.extract_frame_features_tiered,
+                              Mapper.finalize)
+
+    def rec_load(*a, **kw):
+        models.append(load(*a, **kw))
+        return models[-1]
+
+    def rec_run(self, ds):
+        mapped.append((self.cfg, run(self, ds)))
+        return mapped[-1][1]
+
+    def rec_tiered(*a, **kw):
+        feats.append(tiered(*a, **kw))
+        return feats[-1]
+
+    def rec_fin(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fin(self)
+        torch.cuda.synchronize()
+        if finals is not None:
+            finals.append(time.perf_counter() - t0)
+        return out
+
+    batch_map.load_models, Mapper.run, mapping_mod.extract_frame_features_tiered, Mapper.finalize = (
+        rec_load, rec_run, rec_tiered, rec_fin)
+    try:
+        yield
+    finally:
+        batch_map.load_models, Mapper.run, mapping_mod.extract_frame_features_tiered, Mapper.finalize = (
+            load, run, tiered, fin)
+
+
+def same_mapping(tag, cfg, models, loader_ms, loader_ffs, back):
+    """The loader run's MappedScene against an in-memory run of the same
+    quantized frames: scene keys and row count exact, masks and validity
+    pixel for pixel, features at the towers' cosine gate (CUDA's index_add_
+    sums in no fixed order, ROADMAP.md section 3)."""
+    clip, sam = models[0], models[1]
+    ffs = []
+    with recording_mapping([], [], ffs):
+        ms = Mapper(cfg, clip, sam).run(back)
+    n = int(ms.scene.num)
+    check(n == int(loader_ms.scene.num), f"{tag}: scene rows {int(loader_ms.scene.num)} vs in-memory {n}")
+    check(torch.equal(ms.scene.key[:n], loader_ms.scene.key[:n]), f"{tag}: scene voxel keys differ")
+    check(len(ffs) == len(loader_ffs), f"{tag}: {len(loader_ffs)} extracted frames vs {len(ffs)}")
+    cos_m, cos_g = 1.0, 1.0
+    for j, (a, b) in enumerate(zip(loader_ffs, ffs)):
+        check(torch.equal(a.valid, b.valid) and torch.equal(a.masks, b.masks), f"{tag}: keyframe {j}: masks differ")
+        both = a.valid & b.valid
+        if bool(both.any()):
+            cos_m = min(cos_m, F.cosine_similarity(a.f_masks[both].float(), b.f_masks[both].float(), dim=-1).min().item())
+        cos_g = min(cos_g, F.cosine_similarity(a.f_global.float(), b.f_global.float(), dim=0).item())
+    rows = ms.scene.valid()
+    fa, fb = loader_ms.scene.feats()[rows].float(), ms.scene.feats()[rows].float()
+    live = (fa.norm(dim=-1) > 0) & (fb.norm(dim=-1) > 0)
+    cos_s = F.cosine_similarity(fa[live], fb[live], dim=-1).min().item() if bool(live.any()) else 1.0
+    log(f"[{tag}] loader run vs in-memory run of the same quantized frames: {n} scene rows, keys equal; {len(ffs)} "
+        f"keyframes' masks and validity equal; f_masks min cosine {cos_m:.6f}, f_global {cos_g:.6f}, fused scene "
+        f"features min cosine {cos_s:.6f} over {int(live.sum())} rows; instances {int(loader_ms.instances.num())} / "
+        f"{int(ms.instances.num())}")
+    check(cos_m > 0.9998 and cos_g > 0.9998 and cos_s > 0.9998, f"{tag}: features disagree")
+
+
+def hm3dsem_path(root, tag):
+    """(n) batch_map.run_batch over two scenes written in HM3DSem layout
+    (rendered with the loader's K, f = W/2; poses stored y-up), with a GT
+    scene_info JSON each, at config/hm3dsem_benchmark.yaml's settings."""
+    d = deployment_config(HM3DSEM_YAML, root)
+    cfg = from_dict(d)
+    walks, gt_dir = d["main"]["dataset_path"], os.path.join(root, "gt")
+    hw = HM3D_HW
+    k = hm3dsem_k(*hw)
+    t0 = time.perf_counter()
+    scenes, back = [], {}
+    for layout, n, skip in HM3D_SCENES:
+        make_scene, rects, _ = eval_protocol.LAYOUTS[layout]
+        scene = make_scene(SyntheticScene)
+        frames, inst = render_walk(scene, n, hw, k)
+        back[layout] = write_hm3dsem(os.path.join(walks, layout), frames, cfg.main.depth_cut,
+                                     semantic=[i + 1 for i in inst])
+        gt_from_synthetic(scene, room_rects=rects).to_json(os.path.join(gt_dir, f"{layout}.json"),
+                                                          save_object_plys=False)
+        scenes.append({"scene_id": layout, "dataset_path": walks, "skip_frames": skip})
+    log(f"[{tag}] reduced: {len(scenes)} scenes, " + ", ".join(f"{s} {len(back[s])} frames at skip_frames {k_}"
+                                                              for s, _, k_ in HM3D_SCENES)
+        + " (the benchmark's walks: hundreds of frames at 10-30); random weights from main.seed (no checkpoint); "
+        f"{RANDOM_WEIGHTS}")
+    log(f"[{tag}] {sum(len(b) for b in back.values())} frames at {hw[1]}x{hw[0]} rendered and written in HM3DSem "
+        f"layout in {time.perf_counter() - t0:.3f} s (set-up)")
+    for layout, _, _ in HM3D_SCENES:
+        ds = HM3DSemDataset(walks, layout, cfg.main.depth_cut)
+        loader_frames_equal(f"{tag}-{layout}", ds, back[layout])
+        sem = ds.semantic(len(ds) - 1)
+        check(sem.shape == hw and int(sem.max()) > 0, f"{tag}: semantic image")
+    models, mapped, feats, finals = [], [], [], []
+    with recording_mapping(models, mapped, feats, finals):
+        summary, wall, launches, in_path, peak = counted(
+            lambda: batch_map.run_batch(cfg, scenes, gt_dir=gt_dir))
+    clip, sam = models[0][0], models[0][1]
+    per = launches_a_keyframe(clip, sam)
+    nfs = [summary[s["scene_id"]]["frames"] for s in scenes]
+    batches = label_batches(cfg.pipeline.obj_labels, "ROOM_TYPES")  # the first scene fills save_path's label cache
+    expect = {"flash_attention_2d": per["flash_attention_2d"] * sum(nfs), "quant_matmul": 0,
+              "flash_attention": per["flash_attention"] * sum(nfs) + models[0][4].variant.t_layers * batches}
+    log(f"[{tag}] batch_map.run_batch over {len(scenes)} scenes ({sum(nfs)} keyframes, SAM {sam.variant.name} "
+        f"bf16, CLIP {clip.variant.name} bf16) in {wall:.3f} s (the towers' init included), max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB; launches {launches}, expected {expect} ({batches} label text batches)")
+    for name, n in expect.items():
+        check(launches[name] == n, f"{tag}: {name} launches {launches[name]} != {n}")
+    check(len(finals) == len(scenes), f"{tag}: {len(finals)} finalize calls for {len(scenes)} scenes")
+    for s, nf, fin_s in zip(scenes, nfs, finals):
+        st = summary[s["scene_id"]]
+        check(nf == math.ceil(len(back[s["scene_id"]]) / s["skip_frames"]), f"{tag}: keyframes of {s['scene_id']}")
+        ev = st.pop("eval")
+        log(f"[{tag}] {s['scene_id']}: {json.dumps(st)}")
+        log(f"[{tag}] {s['scene_id']}: mapping {st['mapping_fps']:.3f} keyframes/s over {nf} keyframes (finalize "
+            f"included: {1e3 * fin_s:.3f} ms of {1e3 * st['mapping_seconds']:.3f}); "
+            f"{1e3 * (st['mapping_seconds'] - fin_s) / nf:.3f} ms a keyframe without finalize; eval {json.dumps(ev)}")
+        check(st["scene_points"] > 0 and st["instances"] >= 1 and st["floors"] >= 1 and st["rooms"] >= 1,
+              f"{tag}: {s['scene_id']}: an empty graph")
+        check(all(math.isfinite(v) for v in _leaves(ev) if isinstance(v, float)), f"{tag}: non-finite metric")
+    for name, runs in in_path.items():
+        for key, (n, t) in runs.items():
+            log(f"[{tag}] {name} {key}: {n} launches, {t:.4f} ms in the run ({t / n:.4f} ms/launch)")
+    (cfg1, ms1), s1 = mapped[0], scenes[0]
+    same_mapping(f"{tag}-{s1['scene_id']}", cfg1, models[0], ms1, feats[:nfs[0]], back[s1["scene_id"]])
+    return dict(launches=launches, in_path=in_path, nf=sum(nfs))
+
+
+def _leaves(m):
+    if isinstance(m, dict):
+        return [x for v in m.values() for x in _leaves(v)]
+    if isinstance(m, (list, tuple)):
+        return [x for v in m for x in _leaves(v)]
+    return [m]
+
+
+def build_path(tag, cfg, models, ds_check, expect_batches):
+    """build_map.run (its loader from the config), counted; stage times,
+    keyframes/s and the launches a keyframe held."""
+    clip, sam = models[0], models[1]
+    timer = StageTimer("cuda")
+    (graph_dir, graph), wall, launches, in_path, peak = counted(lambda: build_map.run(cfg, models=models, timer=timer))
+    stats = json.loads((Path(graph_dir).parent / "build_stats.json").read_text())
+    nf = stats["frames"]
+    per = launches_a_keyframe(clip, sam)
+    expect = {"flash_attention_2d": per["flash_attention_2d"] * nf, "quant_matmul": 0,
+              "flash_attention": per["flash_attention"] * nf + models[4].variant.t_layers * expect_batches}
+    log(f"[{tag}] build_map.run, {nf} keyframes (SAM {sam.variant.name}, CLIP {clip.variant.name}, bf16): {wall:.3f} "
+        f"s, mapping {stats['mapping_fps']:.3f} keyframes/s (finalize included), "
+        f"{(timer.ms['map'] - timer.ms['finalize']) / nf:.3f} ms a keyframe without finalize (stage timer: map "
+        f"{timer.ms['map']:.3f} ms, finalize {timer.ms['finalize']:.3f}), max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB; stats {json.dumps(stats)}")
+    report(tag, nf, wall, timer, launches, in_path, peak, {})
+    log(f"[{tag}] expected launches {expect} ({expect_batches} label text batches)")
+    for name, n in expect.items():
+        check(launches[name] == n, f"{tag}: {name} launches {launches[name]} != {n}")
+    check(stats["scene_points"] > 0 and stats["instances"] >= 1 and len(graph.rooms) >= 1, f"{tag}: an empty graph")
+    check(nf == len(range(0, len(ds_check), cfg.pipeline.skip_frames)), f"{tag}: keyframes")
+    return dict(launches=launches, in_path=in_path, nf=nf)
+
+
+def replica_path(clip, sam, text, root, tag):
+    """(n) a Replica scene at 1200x680 (cam_params.json with the standard
+    Replica intrinsics, depth PNGs at 6553.5 a metre) through build_map.run
+    at config/replica_office.yaml's settings: SAM vit_b, depth_cut 8.0,
+    SCANNET20."""
+    d = deployment_config(REPLICA_YAML, root)
+    cfg = from_dict(d)
+    hw = REPLICA_HW
+    # f = W/2, c = (W-1)/2, (H-1)/2: Replica's standard 600, 599.5, 339.5 at 1200x680
+    k = hm3dsem_k(*hw)
+    scene = SyntheticScene.three_room(SEED)
+    t0 = time.perf_counter()
+    frames, _ = render_walk(scene, REPLICA_FRAMES, hw, k)
+    back = write_replica(os.path.join(cfg.main.dataset_path, cfg.main.scene_id), frames, cfg.main.depth_cut)
+    log(f"[{tag}] reduced: {len(frames)} frames at skip_frames {cfg.pipeline.skip_frames}; random weights from "
+        f"main.seed (no checkpoint); {RANDOM_WEIGHTS}")
+    log(f"[{tag}] {len(frames)} frames at {hw[1]}x{hw[0]} rendered and written in Replica layout in "
+        f"{time.perf_counter() - t0:.3f} s (set-up)")
+    ds = load_dataset(cfg)
+    check(isinstance(ds, ReplicaDataset) and ds.scale == 6553.5, f"{tag}: load_dataset gave {type(ds).__name__}")
+    loader_frames_equal(tag, ds, back)
+    return build_path(tag, cfg, (clip, sam, clip.variant, sam.variant, text), ds,
+                      label_batches(cfg.pipeline.obj_labels, "ROOM_TYPES"))
+
+
+def horizon_path(root, tag):
+    """(n) a Horizon scene (d435i.yaml, float-timestamp images/, poses.txt of
+    world-to-camera TUM rows) through build_map.run at
+    config/horizon_ic4f.yaml's settings: SAM vit_h, SCANNET200."""
+    d = deployment_config(HORIZON_YAML, root)
+    cfg = from_dict(d)
+    hw = HORIZON_HW
+    f = 0.6 * hw[1]  # a D435i depth camera's focal length (383 px at 640x480)
+    k = np.array([[f, 0, hw[1] / 2 - 0.5], [0, f, hw[0] / 2 - 0.5], [0, 0, 1]], np.float32)
+    scene = SyntheticScene.three_room(SEED + 1)
+    t0 = time.perf_counter()
+    frames, _ = render_walk(scene, HORIZON_FRAMES, hw, k)
+    back = write_horizon(os.path.join(cfg.main.dataset_path, cfg.main.scene_id), frames, cfg.main.depth_cut)
+    log(f"[{tag}] reduced: {len(frames)} frames at skip_frames {cfg.pipeline.skip_frames}; random weights from "
+        f"main.seed (no checkpoint); {RANDOM_WEIGHTS}")
+    log(f"[{tag}] {len(frames)} frames at {hw[1]}x{hw[0]} rendered and written in Horizon layout in "
+        f"{time.perf_counter() - t0:.3f} s (set-up)")
+    ds = load_dataset(cfg)
+    check(isinstance(ds, HorizonDataset), f"{tag}: load_dataset gave {type(ds).__name__}")
+    loader_frames_equal(tag, ds, back, QUAT_POSE_ATOL)
+    t0 = time.perf_counter()
+    models = load_models(cfg)
+    log(f"[{tag}] load_models ({models[2].name} + SAM {models[3].name}, seeded) in {time.perf_counter() - t0:.3f} s")
+    return build_path(tag, cfg, models, ds, label_batches(cfg.pipeline.obj_labels, "ROOM_TYPES"))
+
+
+# float32 dot products of two unit vectors of dim D are exact to D * 2^-24
+# whatever the summation order; a ranking or a class argmax compares two of
+# them, so two candidates within twice that may swap against float64
+def retrieval_tie(dim: int) -> float:
+    return 2 * dim * 2.0**-24
+
+
+def retrieval_path(tag):
+    """(o) apps.retrieval_bench at its defaults on the card, counted (it
+    launches none of the three kernels); every row's indices against the
+    float64 exact top-k under the same filter, equal except at near-ties."""
+    res, wall, launches, in_path, peak = counted(lambda: retrieval_bench.run())
+    line = {k: v for k, v in res.items() if k not in ("device_idx", "inputs")}
+    log(f"[{tag}] {json.dumps(line)}")
+    check(all(n == 0 for n in launches.values()), f"{tag}: launches {launches}")
+    g, q, neg, planted = res["inputs"]
+    idx = res["device_idx"]
+    tie = retrieval_tie(g.shape[1])
+    exact_rows, tie_rows = 0, []
+    for i in range(len(q)):
+        exact, _ = retrieval_bench.exact_topk(q[i], g, neg, idx.shape[1])
+        if np.array_equal(idx[i], exact):
+            exact_rows += 1
+            continue
+        s = g.astype(np.float64) @ q[i].astype(np.float64)
+        margin = s - (neg.astype(np.float64) @ g.T.astype(np.float64)).max(0)  # >= 0: the query's class wins
+        for a, b in zip(idx[i], exact):
+            check(a == b or abs(s[a] - s[b]) <= tie or abs(margin[a]) <= tie or abs(margin[b]) <= tie,
+                  f"{tag}: row {i}: {idx[i]} vs the exact {exact}, not a near-tie")
+        tie_rows.append(i)
+    log(f"[{tag}] {exact_rows} of {len(q)} rows equal the float64 exact top-k; rows differing at near-ties "
+        f"(within {tie:.2e}): {tie_rows}; {wall:.3f} s, launches {launches}")
+    check(line["planted_recall_at_1"] == 1.0, f"{tag}: planted_recall_at_1 {line['planted_recall_at_1']}")
+    check(line["device"] == torch.cuda.get_device_name(0) and line["timing"] == "device", f"{tag}: {line}")
+    return dict(launches=launches, in_path=in_path, result=line)
+
+
+def llm_parser_path(root, tag):
+    """(p) LLMParser over CachedLLMClient(batcher_backend(...)) on the port's
+    ContinuousBatcher with vlm-small (seeded random weights: the text is
+    arbitrary), over the graph path's 8 instructions: every call returns a
+    ParsedQuery, K2 launches one per gpt layer a prefill call; a second pass
+    is answered from the cache with no new batcher step."""
+    vv = vlm_mod.VARIANTS["vlm-small"]
+    t0 = time.perf_counter()
+    vlm = vlm_mod.init_vlm(vv, seed=0, dtype=torch.bfloat16, device="cuda")
+    visual = clip_mod.init_clip_visual(clip_mod.VARIANTS[vv.clip_variant], seed=1, dtype=torch.bfloat16)
+    batcher = ContinuousBatcher(vlm, visual)
+    cache = os.path.join(root, "llm_cache.jsonl")
+    client = llm_client.CachedLLMClient(llm_client.batcher_backend(batcher), cache_path=cache)
+
+    def chat(system, prompt):
+        return client.send_query(llm_client.Conversation().system(system).user(prompt))
+
+    parser = LLMParser(chat)
+    log(f"[{tag}] reduced: vlm-small with seeded random weights, {len(QUERIES)} instructions; init "
+        f"{time.perf_counter() - t0:.3f} s")
+    passes = []
+    for turn in ("served", "cached"):
+        calls = collections.defaultdict(list)
+        steps0 = batcher.steps
+        with counting(calls):
+            parsed, wall, launches, in_path, peak = counted(lambda: [parser(ins) for ins in QUERIES])
+        passes.append((parsed, launches, calls, batcher.steps - steps0, in_path))
+        log(f"[{tag}] {turn}: {len(QUERIES)} parses in {wall:.3f} s ({1e3 * wall / len(QUERIES):.3f} ms a parse), "
+            f"batcher steps {batcher.steps - steps0}, prefill calls {len(calls['prefill'])} (B, T: "
+            f"{dict(sorted(collections.Counter(calls['prefill']).items()))}), launches {launches}")
+        for ins, p in zip(QUERIES, parsed):
+            check(isinstance(p, ParsedQuery), f"{tag}: {ins!r} gave {p!r}")
+    (p1, l1, c1, s1, in_path), (p2, l2, c2, s2, _) = passes
+    for ins, p in zip(QUERIES, p1):
+        log(f"[{tag}] {ins!r} -> {tuple(x if x is None or len(x) <= 40 else x[:37] + '...' for x in p.astuple())}")
+    check(l1["flash_attention"] == vv.layers * len(c1["prefill"]) and len(c1["prefill"]) >= 1 and s1 > 0,
+          f"{tag}: K2 launches {l1['flash_attention']} for {len(c1['prefill'])} prefill calls")
+    check(l1["flash_attention_2d"] == 0 and l1["quant_matmul"] == 0, f"{tag}: launches {l1}")
+    check(s2 == 0 and not c2["prefill"] and all(n == 0 for n in l2.values()), f"{tag}: the cached pass served")
+    check([p.astuple() for p in p1] == [p.astuple() for p in p2], f"{tag}: the cached pass parsed otherwise")
+    with open(cache) as f:
+        check(sum(1 for line in f if line.strip()) == len(set(QUERIES)), f"{tag}: cache file lines")
+    del vlm, visual, batcher
+    return dict(launches=l1, in_path=in_path, nf=len(QUERIES))
+
+
+def timed_calls(fn, calls):
+    """`calls` calls of fn, each timed by CUDA events; returns the last
+    output and the times (ms)."""
+    times = []
+    for _ in range(calls):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return out, times
+
+
+@contextlib.contextmanager
+def eager_solvers():
+    """The solvers without their CUDA graphs (each solve called as on the
+    CPU), for the eager side of (q)'s comparison."""
+    run = solvers._run
+    solvers._run = lambda fn, tensors, **settings: tuple(fn(*tensors, **settings))
+    try:
+        yield
+    finally:
+        solvers._run = run
+
+
+def profile_solve(tag, name, fn):
+    """One call of fn under torch.profiler: its CUDA kernels, their device
+    time, the host's self time and the host ops that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    dev = [e for e in ka if str(e.device_type).endswith("CUDA")]
+    dev_us = sum(e.self_device_time_total if hasattr(e, "self_device_time_total") else e.self_cuda_time_total
+                 for e in dev)
+    host = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)
+    log(f"[{tag}] profile, {name}: {sum(e.count for e in dev)} CUDA kernels, {dev_us / 1e3:.3f} ms of device time; "
+        f"host self time {sum(e.self_cpu_time_total for e in ka) / 1e3:.3f} ms, most in "
+        + ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.3f} ms ({e.count} calls)" for e in host[:6]))
+
+
+def pose_err(a, b) -> float:
+    """max |log(a^-1 b)| over a batch of poses."""
+    a, b = torch.as_tensor(a, dtype=torch.float32).cpu(), torch.as_tensor(b, dtype=torch.float32).cpu()
+    return float(log_se3(invert_pose(a) @ b).abs().max())
+
+
+# Card vs the port's own CPU run of the same solve: float32 Gauss-Newton in
+# another summation order converges to the same fixed point within a few
+# hundred ulps of its poses; ICP's voxel-snap correspondences may flip at a
+# cell face, which moves the fixed point within the snap's own resolution
+SOLVER_CPU_ATOL = 1e-4
+ICP_CPU_ATOL = 1e-3
+GRAPH_CALLS, EAGER_CALLS = 7, 3
+
+
+def solver_path(tag):
+    """(q) the pose solvers on the card: PnP on 4096 points, pnp_batch at
+    B = 64, a pose-graph loop of 64 poses, icp_multiscale of a 20k-point
+    scan against a backprojected scene; each recovers its known pose within
+    tests/test_solvers.py's tolerance and agrees with the port's CPU run,
+    timed as a CUDA graph and eagerly (eager_solvers); one PnP solve of
+    each kind under torch.profiler."""
+    rng = np.random.default_rng(SEED)
+    cam = Pinhole.make(200.0, 200.0, 64.0, 48.0)
+    out = {}
+
+    def case_pnp(n):
+        pts = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+        pts[:, 2] += 4.0
+        xi = (rng.normal(0, 1, 6) * [0.05, 0.05, 0.08, 0.04, 0.03, 0.03]).astype(np.float32)
+        pose = exp_se3(torch.from_numpy(xi))
+        uv = project(transform_points(pose, torch.from_numpy(pts)), cam)[0].numpy()
+        return pts, uv, pose.numpy()
+
+    def run(name, solve, truth, err_max, cpu_atol):
+        """solve(device): the CUDA graph's first call (capture included)
+        and the median of GRAPH_CALLS replays, against the eager solve's
+        median of EAGER_CALLS after a warm-up; both held to the known pose
+        and to the CPU run."""
+        _, (first,) = timed_calls(lambda: solve(None), 1)
+        res, times = timed_calls(lambda: solve(None), GRAPH_CALLS)
+        with eager_solvers():
+            solve(None)
+            eager, eager_times = timed_calls(lambda: solve(None), EAGER_CALLS)
+        t0 = time.perf_counter()
+        ref = solve("cpu")
+        cpu_s = time.perf_counter() - t0
+        pose, eager_pose, ref_pose = (r.pose if isinstance(r, solvers.ICPResult) else r[0] for r in (res, eager, ref))
+        err, diff = pose_err(truth, pose), float((pose.cpu() - ref_pose).abs().max())
+        diff_eager = float((pose - eager_pose).abs().max())
+        ms, eager_ms = statistics.median(times), statistics.median(eager_times)
+        log(f"[{tag}] {name}: CUDA graph {ms:.3f} ms a solve (median of {GRAPH_CALLS}: "
+            f"{', '.join(f'{t:.3f}' for t in times)}; first call, capture included, {first:.3f}); eager {eager_ms:.3f} "
+            f"ms (median of {EAGER_CALLS}: {', '.join(f'{t:.3f}' for t in eager_times)}), {eager_ms / ms:.1f}x; "
+            f"CUDA events. max |log(truth^-1 pose)| {err:.3e} (limit {err_max}); card vs CPU max |pose difference| "
+            f"{diff:.3e} (limit {cpu_atol}); graph vs eager {diff_eager:.3e}; CPU {cpu_s * 1e3:.3f} ms")
+        check(err_max is None or err < err_max, f"{tag}: {name} missed the known pose")
+        check(diff <= cpu_atol and diff_eager <= cpu_atol, f"{tag}: {name}: the graph, the eager solve and the CPU "
+                                                           "disagree")
+        out[name] = dict(graph_ms=ms, first_ms=first, eager_ms=eager_ms, cpu_ms=cpu_s * 1e3)
+        return res
+
+    pts, uv, truth = case_pnp(4096)
+    valid = np.ones(len(pts), bool)
+    def pnp(device):
+        return solvers.pnp_gauss_newton(pts, uv, valid, cam, np.eye(4), device=device)
+
+    res = run("pnp_gauss_newton, 4096 points", pnp, truth, 1e-3, SOLVER_CPU_ATOL)
+    check(float(res[1]) < 1e-2, f"{tag}: PnP rms {float(res[1])}")
+    with eager_solvers():
+        profile_solve(tag, "PnP eager", lambda: pnp(None))
+    profile_solve(tag, "PnP, CUDA graph replay", lambda: pnp(None))
+    cases = [case_pnp(4096) for _ in range(64)]
+    P, U, T = (np.stack([c[i] for c in cases]) for i in range(3))
+    V, I = np.ones(P.shape[:2], bool), np.stack([np.eye(4, dtype=np.float32)] * 64)
+    res = run("pnp_batch, B = 64 x 4096 points",
+              lambda device: solvers.pnp_batch(P, U, V, cam, I, device=device), T, 1e-3, SOLVER_CPU_ATOL)
+    check(float(res[1].max()) < 1e-2, f"{tag}: pnp_batch rms {float(res[1].max())}")
+    # a loop of 64 poses around a circle, odometry + loop closure + chords
+    m = 64
+    step = exp_se3(torch.tensor([0.3, 0, 0, 0, 0, 2 * math.pi / m]))
+    true = [torch.eye(4)]
+    for _ in range(1, m):
+        true.append(true[-1] @ step)
+    true = torch.stack(true)
+    edges = [(i, i + 1) for i in range(m - 1)] + [(m - 1, 0)] + [(i, i + 8) for i in range(0, m - 8, 8)]
+    noise = exp_se3(torch.from_numpy(rng.normal(0, 0.02, (len(edges), 6)).astype(np.float32)))
+    rels = torch.stack([invert_pose(true[i]) @ true[j] @ noise[e] for e, (i, j) in enumerate(edges)])
+    init = [true[0]]
+    for e in range(m - 1):
+        init.append(init[-1] @ rels[e])
+    init = torch.stack(init).numpy()
+    E, ev = np.array(edges), np.ones(len(edges), bool)
+
+    def mean_err(ps):
+        return float(log_se3(invert_pose(true) @ torch.as_tensor(ps).cpu()).abs().mean())
+
+    res = run(f"pose_graph_gauss_newton, {m} poses, {len(edges)} edges, 20 iterations",
+              lambda device: solvers.pose_graph_gauss_newton(init, E, rels.numpy(), ev, device=device),
+              true, None, SOLVER_CPU_ATOL)
+    log(f"[{tag}] pose graph mean |error| {mean_err(res[0]):.4f} (odometry init {mean_err(init):.4f}; limit 0.05)")
+    check(mean_err(res[0]) < mean_err(init) and mean_err(res[0]) < 0.05, f"{tag}: the pose graph did not close")
+    # ICP: a 20k-point scan of a backprojected scene, displaced
+    ds = SyntheticDataset(SyntheticScene.three_room(SEED), num_frames=6, hw=(240, 320), seed=SEED)
+    pts = []
+    for i in range(len(ds)):
+        f = ds[i]
+        p, _, v = backproject(torch.from_numpy(f.depth), torch.from_numpy(f.rgb), Pinhole.from_matrix(f.k),
+                              torch.from_numpy(f.pose), 1e-3, 20.0)
+        pts.append(p[v])
+    mappts = torch.cat(pts).numpy()
+    scan = mappts[rng.choice(len(mappts), 20000, replace=False)]
+    t_true = exp_se3(torch.tensor([0.08, -0.05, 0.02, 0.03, -0.02, 0.05]))
+    scan_p = transform_points(invert_pose(t_true), torch.from_numpy(scan)).numpy()
+    kw = dict(scales=(0.3, 0.1, 0.05, 0.03), iters_per_scale=15)
+    sv, mv = np.ones(len(scan_p), bool), np.ones(len(mappts), bool)
+    res = run(f"icp_multiscale, a {len(scan_p)}-point scan against {len(mappts)} map points, 4 scales x 15",
+              lambda device: solvers.icp_multiscale(scan_p, sv, mappts, mv, np.eye(4), device=device, **kw),
+              t_true, 0.05, ICP_CPU_ATOL)
+    log(f"[{tag}] icp_multiscale rms {float(res.rms):.4f} m, inlier fraction {float(res.inlier_frac):.4f}")
+    check(float(res.inlier_frac) > 0.9, f"{tag}: ICP inlier fraction {float(res.inlier_frac)}")
+    return out
+
+
 def hold_new_shapes(cases, paths):
     """A case for every K1, K2 and K3 shape a path launched that no case
     held: K1 and K2 as views of one packed projection, as _attention_2d and
@@ -1456,7 +2059,9 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     build_all()
+    stamp("build")
     cases = kernel_phases()
+    stamp("kernel phases")
 
     cfg = from_dict(CONFIG)
     qcfg_dict = copy.deepcopy(CONFIG)
@@ -1485,6 +2090,7 @@ def main() -> int:
     text_tower_check(text)
     vit_h_tower_checks(sam_h, qsam_h, ds[0])
     del sam_h
+    stamp("set-up and tower checks")
     paths = {"bf16": main_path(clip, sam, ds, cfg, "main", {"flash_attention_2d": 12, "flash_attention": 24,
                                                              "quant_matmul": 0})}
     q8_expect = {"flash_attention_2d": 12, "flash_attention": 24, "quant_matmul": 144}
@@ -1496,27 +2102,56 @@ def main() -> int:
     paths.update(batched_path(clip, sam, ds, CONFIG, "batched"))
     paths["(l) batched extraction, W8A8, pairs"] = batched_w8a8_extraction(
         qclip, qsam, ds, qcfg, paths["w8a8"]["ms"].keyframe_feats, "batched-w8a8")
+    stamp("(a)-(d), (k), (l)")
     for path in paths.values():
         path.pop("ms", None)  # the mapped scenes are checked: free their device state
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         graph = paths["graph: build_map.run, load, queries"] = graph_path(clip, sam, text, ds, cfg, "graph", tmp)
+        stamp("graph: build_map.run, load, queries")
         oracle_dir = os.path.join(tmp, "oracle")
         paths["(e) oracle protocol: eval_protocol.run"] = oracle_protocol(oracle_dir, "oracle")
+        stamp("(e) oracle protocol: eval_protocol.run")
         paths["(f) slow path: query_bench --slow --vlm clip"] = slow_path(
             clip, sam, text, ds, cfg, graph["graph_dir"], "slow")
+        stamp("(f) slow path: query_bench --slow --vlm clip")
         paths["(g) oracle retrieval: query_bench --oracle"] = oracle_query_path(
             clip, sam, text, cfg, os.path.join(oracle_dir, "three_room_seed0"), "oracle-query")
+        stamp("(g) oracle retrieval: query_bench --oracle")
         prefill_check("serving")
         rates = os.path.join(tmp, "serving_bench.json")
         paths["(h) serving: serving_bench vlm-small"] = serving_path(
             "serving", "vlm-small", rates, batch=8, requests=16, new_tokens=32, chunk=8, chain_calls=5)
+        stamp("(h) serving: serving_bench vlm-small")
         paths["(i) slow path: query_bench --slow --vlm generative"] = generative_path(
             clip, sam, text, ds, cfg, graph["graph_dir"], rates, "generative")
+        stamp("(i) slow path: query_bench --slow --vlm generative")
         paths["(j) serving: serving_bench llava-tinyllama"] = serving_path(
             "serving-llama", "llava-tinyllama", None, batch=8, requests=8, new_tokens=16, chain_calls=1)
+        stamp("(j) serving: serving_bench llava-tinyllama")
         paths["(m) hierarchical fold + mapper-state checkpoint"] = hierarchical_path(os.path.join(tmp, "state"), "hier")
+        stamp("(m) hierarchical fold + mapper-state checkpoint")
+        torch.cuda.empty_cache()
+        paths["(n) hm3dsem: batch_map.run_batch, 2 scenes"] = hm3dsem_path(os.path.join(tmp, "hm3dsem"), "hm3dsem")
+        stamp("(n) hm3dsem: batch_map.run_batch, 2 scenes")
+        torch.cuda.empty_cache()
+        paths["(n) replica: build_map.run, 1200x680"] = replica_path(clip, sam, text, os.path.join(tmp, "replica"),
+                                                                    "replica")
+        stamp("(n) replica: build_map.run, 1200x680")
+        paths["(n) horizon: build_map.run"] = horizon_path(os.path.join(tmp, "horizon"), "horizon")
+        stamp("(n) horizon: build_map.run")
+        torch.cuda.empty_cache()
+        paths["(o) retrieval_bench"] = retrieval_path("retrieval")
+        stamp("(o) retrieval_bench")
+        paths["(p) LLMParser served by vlm-small"] = llm_parser_path(tmp, "llm-parser")
+        stamp("(p) LLMParser served by vlm-small")
+        solver_ms, wall, launches, in_path, peak = counted(lambda: solver_path("solvers"))
+        log(f"[solvers] {wall:.3f} s (the CPU runs included), launches {launches}")
+        check(all(n == 0 for n in launches.values()), f"solvers: launches {launches}")
+        paths["(q) pose solvers"] = dict(launches=launches, in_path=in_path)
+        stamp("(q) pose solvers")
     hold_new_shapes(cases, paths)
+    stamp("cases of the paths' new shapes")
     path_sums(cases, paths)
     print(json.dumps(kernels_line(cases, paths)))
     print(smi)

@@ -52,7 +52,7 @@ def run(
         raise NotImplementedError("pipeline.sharded_mapping: on: the ShardedMapper is not ported (ROADMAP.md)")
     dev = resolve(device)
     clip, sam, _, _, text = models if models is not None else load_models(cfg, dev)
-    dataset = dataset if dataset is not None else load_dataset(cfg)
+    dataset = dataset if dataset is not None else load_dataset(cfg, dev)
     t0 = time.time()
     print(f"mapper: single-device Mapper (pipeline.sharded_mapping={sm}) on {dev}")
     with stage(timer, "map"):

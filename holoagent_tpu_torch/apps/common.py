@@ -47,21 +47,37 @@ def load_models(cfg: Config, device: DeviceLike = None):
     return clip, sam, cv, sv, text
 
 
-def load_dataset(cfg: Config) -> SyntheticDataset:
-    """The configured dataset.  Only ``synthetic`` is ported; the file
-    loaders wait (ROADMAP.md)."""
-    name = cfg.main.dataset
-    if name != "synthetic":
-        raise NotImplementedError(f"dataset {name!r}: only 'synthetic' is ported (ROADMAP.md)")
-    scene = None
-    if cfg.main.layout != "two_room":
-        scene = getattr(SyntheticScene, cfg.main.layout)(cfg.main.seed)
-    return SyntheticDataset(
-        scene=scene,
-        seed=cfg.main.seed,
-        num_frames=cfg.main.num_frames,
-        hw=(cfg.main.frame_h, cfg.main.frame_w),
-    )
+def load_dataset(cfg: Config, device: DeviceLike = None):
+    """The configured dataset: ``synthetic`` (rendered), or a file loader
+    (``horizon``, ``scannet``, ``hm3dsem``, ``replica``) over
+    ``main.dataset_path`` / ``main.scene_id``.  The loaders yield host numpy
+    frames; `device` is the device they are mapped on (the card unless the
+    caller asks for the CPU), resolved first, so a run meant for an absent
+    card fails before any file is read.  An unknown name raises KeyError."""
+    resolve(device)
+    name, m = cfg.main.dataset, cfg.main
+    if name == "synthetic":
+        scene = None
+        if m.layout != "two_room":
+            scene = getattr(SyntheticScene, m.layout)(m.seed)
+        return SyntheticDataset(scene=scene, seed=m.seed, num_frames=m.num_frames, hw=(m.frame_h, m.frame_w))
+    if name == "horizon":
+        from ..dataloader.horizon import HorizonDataset
+
+        return HorizonDataset(m.dataset_path, m.scene_id, m.depth_cut)
+    if name == "scannet":
+        from ..dataloader.scannet import ScannetDataset
+
+        return ScannetDataset(m.dataset_path, m.scene_id, m.depth_cut)
+    if name == "hm3dsem":
+        from ..dataloader.hm3dsem import HM3DSemDataset
+
+        return HM3DSemDataset(m.dataset_path, m.scene_id, m.depth_cut)
+    if name == "replica":
+        from ..dataloader.replica import ReplicaDataset
+
+        return ReplicaDataset(m.dataset_path, m.scene_id, m.depth_cut)
+    raise KeyError(f"unknown dataset {name!r}")
 
 
 def tokenizer() -> SimpleTokenizer:

@@ -265,7 +265,7 @@ def run(
     clip, _, _, _, text = models if models is not None else load_models(cfg, dev)
     tok = tokenizer()
     if pad_gallery:
-        dataset = dataset if dataset is not None else load_dataset(cfg)
+        dataset = dataset if dataset is not None else load_dataset(cfg, dev)
         _pad_gallery_with_crops(graph, pad_gallery, dataset, clip)
     text_override = None
     if oracle:
@@ -274,7 +274,7 @@ def run(
         text_override = _apply_oracle_embeddings(graph, GTGraph.from_json(gt_path), clip.variant.embed_dim)
     provider = None
     if use_slow:
-        dataset = dataset if dataset is not None else load_dataset(cfg)
+        dataset = dataset if dataset is not None else load_dataset(cfg, dev)
         # keyframe images stay resident on the device, as during mapping:
         # the query path never uploads them
         skip = max(1, cfg.pipeline.skip_frames)

@@ -314,11 +314,18 @@ class SyntheticScene:
         labimg = np.full((H, W), -1, np.int32)
         eps = 1e-12
         inv = 1.0 / np.where(np.abs(dirs) < eps, eps, dirs)
+        # the slab test one axis at a time: the same float64 products and an
+        # exact max/min as a reduction over the size-3 last axis, which
+        # numpy runs about 4x slower
+        inv_axes = [np.ascontiguousarray(inv[..., i]) for i in range(3)]
         for b in geo:
-            t0 = (b.lo[None, None] - o) * inv
-            t1 = (b.hi[None, None] - o) * inv
-            tmin = np.minimum(t0, t1).max(axis=-1)
-            tmax = np.maximum(t0, t1).min(axis=-1)
+            lo, hi = b.lo - o, b.hi - o
+            t0, t1 = lo[0] * inv_axes[0], hi[0] * inv_axes[0]
+            tmin, tmax = np.minimum(t0, t1), np.maximum(t0, t1)
+            for i in (1, 2):
+                t0, t1 = lo[i] * inv_axes[i], hi[i] * inv_axes[i]
+                tmin = np.maximum(tmin, np.minimum(t0, t1))
+                tmax = np.minimum(tmax, np.maximum(t0, t1))
             hit = (tmax > np.maximum(tmin, 1e-4)) & (tmin > 1e-4) & (tmin < tbest)
             tbest = np.where(hit, tmin, tbest)
             rgb[hit] = b.color

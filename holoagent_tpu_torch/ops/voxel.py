@@ -4,10 +4,13 @@ Points bin into a 2048 x 2048 x 512 grid and the three cell coordinates pack
 into one int32 key (11/11/9 bits, z = gravity axis).  Downsampling is a
 stable sort of the keys plus a segment mean; lookups are ``searchsorted``
 into a sorted key array.  Invalid lanes carry ``SENTINEL`` and sort last.
+``snap_to_voxels`` finds each point's nearest occupied voxel among the 27
+cells around it (the pose solvers' correspondence search).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
@@ -42,11 +45,18 @@ class GridSpec(NamedTuple):
         return GridSpec(float(vs), tuple(float(c) for c in -half))
 
     def origin_tensor(self, device) -> torch.Tensor:
-        return torch.tensor(self.origin, dtype=torch.float32, device=device)
+        return _const(self.origin, torch.float32, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _const(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A small constant tensor, made once a device: no host copy at each
+    use, so a CUDA graph can capture its users (``ops.solvers``' ICP)."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def _hi(device) -> torch.Tensor:
-    return torch.tensor([NX - 2, NY - 2, NZ - 2], dtype=torch.int32, device=device)
+    return _const((NX - 2, NY - 2, NZ - 2), torch.int32, torch.device(device))
 
 
 def coords(points: torch.Tensor, grid: GridSpec) -> torch.Tensor:
@@ -134,3 +144,36 @@ def lookup(sorted_keys: torch.Tensor, query_keys: torch.Tensor) -> torch.Tensor:
     pos = pos.clamp(0, sorted_keys.shape[0] - 1)
     hit = (sorted_keys[pos] == query_keys) & (query_keys != SENTINEL)
     return torch.where(hit, pos, torch.full_like(pos, -1))
+
+
+# (27, 3) cell offsets of the neighbourhood; row 13 is (0, 0, 0)
+_NEIGHBOR_OFFSETS = np.array(
+    [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)], dtype=np.int32
+)
+
+
+def snap_to_voxels(
+    query_points: torch.Tensor,  # (M, 3)
+    query_valid: torch.Tensor,  # (M,) bool
+    sorted_keys: torch.Tensor,  # (C,) sorted, SENTINEL padded
+    voxel_points: torch.Tensor,  # (C, 3) representative point per voxel
+    grid: GridSpec,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Snap each query point to the nearest occupied voxel's representative,
+    probing the 27-cell neighbourhood (ties to the first probe, as
+    ``jnp.argmin``).  Returns (row (M,) int64 into the voxel rows or -1,
+    distance (M,) float32, inf where no probe hits)."""
+    dev = query_points.device
+    c = coords(query_points, grid)  # (M, 3)
+    offsets = _const(tuple(map(tuple, _NEIGHBOR_OFFSETS.tolist())), torch.int32, dev)
+    nbr = c[:, None, :] + offsets[None]  # (M, 27, 3)
+    nbr = torch.minimum(nbr.clamp(min=0), _hi(dev))
+    rows = lookup(sorted_keys, pack(nbr).reshape(-1)).reshape(nbr.shape[:2])  # (M, 27)
+    cand = voxel_points[rows.clamp(min=0)]  # (M, 27, 3)
+    d2 = torch.sum((cand - query_points[:, None, :]) ** 2, dim=-1)
+    d2 = torch.where(rows >= 0, d2, float("inf"))
+    best = torch.argmin(d2, dim=-1, keepdim=True)  # the first minimum
+    take = torch.gather(rows, 1, best)[:, 0]
+    bestd = torch.sqrt(torch.gather(d2, 1, best)[:, 0])
+    ok = query_valid & (take >= 0) & torch.isfinite(bestd)
+    return torch.where(ok, take, -1), torch.where(ok, bestd, float("inf"))

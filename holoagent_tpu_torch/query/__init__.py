@@ -3,5 +3,5 @@
 
 from .engine import FSRQueryEngine
 from .oracle import OracleVLM, read_tag, tag_image
-from .parser import ParsedQuery, RuleParser
+from .parser import LLMParser, ParsedQuery, RuleParser
 from .vlm_backend import ClipVLM, GenerativeVLM, NullVLM, VLMBackend

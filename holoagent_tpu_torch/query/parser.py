@@ -1,20 +1,23 @@
 """Hierarchical query parsing: "object X in room Y on floor Z" -> (floor,
 room, object).
 
-The port's own copy of holoagent_tpu/query/parser.py, ``RuleParser`` only
-(Chinese shapes included).  ``LLMParser`` waits for the port of
-``query/llm_client.py`` (ROADMAP.md).
+The port's own copy of holoagent_tpu/query/parser.py: ``RuleParser``
+(Chinese shapes included) and ``LLMParser``.
 
 The reference parses with an Azure GPT call
 (reference fsr_vln/memory/hmsg/utils/llm_utils.py:383-466
-`parse_hier_query_use_prompt_insentence_parse_icra`); the deterministic rule
-parser here is the hermetic default."""
+`parse_hier_query_use_prompt_insentence_parse_icra`).  Here parsing is a
+pluggable chain: an LLM backend when one is configured (the same prompt
+contract, served by the port's ContinuousBatcher through
+``query.llm_client`` or any OpenAI-compatible endpoint), with the
+deterministic rule parser as both the hermetic default and the fallback
+when the backend fails."""
 
 from __future__ import annotations
 
 import re
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 
 @dataclass
@@ -151,3 +154,54 @@ def _zh_numeral(s: str) -> str:
     if s in _ZH_DIGITS:
         return str(_ZH_DIGITS[s])
     return s
+
+
+class LLMParser:
+    """Prompted parser using any text backend (reference prompt contract).
+    `backend(system_prompt, user_prompt) -> str` returns e.g.
+    "[Floor 1, Living Room, sofa]"."""
+
+    def __init__(
+        self,
+        backend: Callable[[str, str], str],
+        spec: Sequence[str] = ("obj", "room", "floor"),
+        fallback: Optional[RuleParser] = None,
+    ):
+        self.backend = backend
+        self.spec = set(spec)
+        self.fallback = fallback or RuleParser(spec)
+
+    def __call__(self, instruction: str) -> ParsedQuery:
+        if self.spec == {"obj"}:
+            return ParsedQuery(None, None, instruction.strip())
+        if self.spec == {"obj", "room", "floor"}:
+            system = (
+                "You are a query parser. Your task is to parse a sentence into "
+                "floor, room, and object. If only room or object can be parsed, "
+                "leave the other field empty. All descriptions except object "
+                "must be in English."
+            )
+            example = "[Floor 1, Living Room, sofa]"
+            order = ("floor", "room", "obj")
+        elif self.spec == {"obj", "room"}:
+            system = "You are a query parser. Your task is to parse a sentence into room and object."
+            example = "[Living Room, Sofa]"
+            order = ("room", "obj")
+        else:  # obj + floor
+            system = "You are a query parser. Your task is to parse a sentence into floor and object."
+            example = "[Floor 1, Sofa]"
+            order = ("floor", "obj")
+        prompt = (
+            f"Please parse the following sentence: {instruction}"
+            f"Output format requirement: a list separated by commas, in the "
+            f"order of {', '.join(order)}. For example: {example}"
+        )
+        try:
+            raw = self.backend(system, prompt).strip().rstrip("]").lstrip("[")
+            parts = [x.strip() for x in raw.split(",")]
+            vals = dict(zip(order, parts + [None] * len(order)))
+            return ParsedQuery(
+                floor=vals.get("floor"), room=vals.get("room"), object=vals.get("obj")
+            )
+        except Exception:
+            return self.fallback(instruction)

@@ -17,8 +17,9 @@ import torch
 
 import holoagent_tpu_torch
 from holoagent_tpu_torch import device as tdevice
-from holoagent_tpu_torch.apps import build_map, eval_protocol, long_query_bench, query_bench, serving_bench
-from holoagent_tpu_torch.apps.common import load_models, tokenizer
+from holoagent_tpu_torch.apps import (batch_map, build_map, eval_protocol, long_query_bench, query_bench,
+                                      retrieval_bench, serving_bench)
+from holoagent_tpu_torch.apps.common import load_dataset, load_models, tokenizer
 from holoagent_tpu_torch.config import from_dict
 from holoagent_tpu_torch.memory import checkpoint as tckpt
 from holoagent_tpu_torch.memory.hmsg import HMSGraph
@@ -26,8 +27,12 @@ from holoagent_tpu_torch.memory.mapping import Mapper
 from holoagent_tpu_torch.models import clip as tclip
 from holoagent_tpu_torch.models import sam as tsam
 from holoagent_tpu_torch.models import vlm as tvlm
+from holoagent_tpu_torch.ops import solvers as tsolvers
+from holoagent_tpu_torch.ops.voxel import GridSpec
 from holoagent_tpu_torch.perception.oracle import oracle_frame_features
-from holoagent_tpu_torch.query import FSRQueryEngine
+from holoagent_tpu_torch.query import FSRQueryEngine, LLMParser
+from holoagent_tpu_torch.query import llm_client
+from holoagent_tpu_torch.utils.camera import Pinhole
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = Path(holoagent_tpu_torch.__file__).resolve().parent
@@ -127,6 +132,35 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             entry()
     assert tdevice.resolve("cpu").type == "cpu"
+
+
+def test_seventh_slice_entry_points_raise_without_cuda(monkeypatch):
+    """The dataset loaders' entry, batch_map, retrieval_bench and the pose
+    solvers run on the card unless asked for the CPU; llm_client and
+    LLMParser are host-side and device-free."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = from_dict({"main": {"dataset": "synthetic", "num_frames": 2, "frame_h": 8, "frame_w": 8},
+                     "models": {"clip": {"type": "test-tiny", "dtype": "float32"},
+                                "sam": {"type": "test-tiny", "dtype": "float32"}}})
+    eye, pts = np.eye(4, dtype=np.float32), np.zeros((4, 3), np.float32)
+    cam = Pinhole.make(10.0, 10.0, 4.0, 4.0)
+    for entry in (lambda: load_dataset(cfg), lambda: batch_map.run_batch(cfg, []),
+                  lambda: retrieval_bench.main(["--gallery", "8", "--batch", "2"]),
+                  lambda: tsolvers.pnp_gauss_newton(pts, pts[:, :2], np.ones(4, bool), cam, eye),
+                  lambda: tsolvers.pnp_batch(pts[None], pts[None, :, :2], np.ones((1, 4), bool), cam, eye[None]),
+                  lambda: tsolvers.pose_graph_gauss_newton(eye[None], np.zeros((0, 2)), np.zeros((0, 4, 4)),
+                                                           np.zeros(0, bool)),
+                  lambda: tsolvers.icp_point2point(pts, np.ones(4, bool), np.zeros(1, np.int32), pts[:1],
+                                                   GridSpec.centered(0.1), eye),
+                  lambda: tsolvers.icp_multiscale(pts, np.ones(4, bool), pts, np.ones(4, bool), eye)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
+    assert len(load_dataset(cfg, "cpu")) == 2
+    assert batch_map.run_batch(cfg, [], device="cpu") == {}
+    client = llm_client.CachedLLMClient(lambda messages: "[Floor 1, Kitchen, sink]")
+    parsed = LLMParser(lambda system, prompt: client.send_query(
+        llm_client.Conversation().system(system).user(prompt)))("the sink in the kitchen on floor 1")
+    assert parsed.astuple() == ("Floor 1", "Kitchen", "sink")
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):

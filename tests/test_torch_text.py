@@ -125,13 +125,13 @@ def test_load_dataset_and_tokenizer():
     from holoagent_tpu.apps.common import load_dataset as jload_dataset
 
     main = {"layout": "three_room", "num_frames": 6, "frame_h": 24, "frame_w": 32}
-    ds, jds = load_dataset(tconfig.from_dict({"main": main})), jload_dataset(jconfig.from_dict({"main": main}))
+    ds, jds = load_dataset(tconfig.from_dict({"main": main}), "cpu"), jload_dataset(jconfig.from_dict({"main": main}))
     assert len(ds) == len(jds) > 0 and ds[0].rgb.shape == (24, 32, 3)
     for a, b in zip(ds[len(ds) - 1], jds[len(ds) - 1]):
         np.testing.assert_array_equal(a, b)
     assert isinstance(tokenizer(), SimpleTokenizer)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_dataset(tconfig.from_dict({"main": {"dataset": "scannet"}}))
+    with pytest.raises(KeyError, match="unknown dataset"):
+        load_dataset(tconfig.from_dict({"main": {"dataset": "nuscenes"}}), "cpu")
 
 
 def test_vocabularies_and_label_cache(towers, tmp_path):
