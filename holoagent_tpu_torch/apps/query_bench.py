@@ -75,7 +75,8 @@ def _pad_gallery_with_crops(graph, n: int, dataset, clip, seed: int = 7):
     whose embeddings are RENDERED-CROP features from the SAME image tower as
     the real objects: random windows over the scan's frames (wall/floor/
     background and partial furniture), resized on the tower's device and
-    batch-encoded through CLIP (kernel K2 on the card), 64 crops a batch.
+    batch-encoded through CLIP on the tower's attention route (kernel K2 on
+    the card for the production towers), 64 crops a batch.
     Distractor centers sit far outside the scene so a retrieved distractor
     can never earn GT credit.
 
@@ -118,7 +119,7 @@ def _pad_gallery_with_crops(graph, n: int, dataset, clip, seed: int = 7):
     embs = []
     for i in range(0, n, ENCODE_CHUNK):
         x = clip_mod.preprocess(torch.stack(crops[i : i + ENCODE_CHUNK]), size)
-        embs.append(clip_mod.encode_image(clip, x, impl="flash").cpu().numpy())
+        embs.append(clip_mod.encode_image(clip, x, impl=clip.impl).cpu().numpy())
     embs = np.concatenate(embs)
     base_room = graph.rooms[0].room_id if graph.rooms else "room_0"
     for i in range(n):

@@ -1,16 +1,26 @@
-"""Carry the JAX package's weights and state into the port.
+"""Carry weights and state between the JAX package and the port, both ways.
 
 Inputs are plain numpy trees, as ``jax.tree.map(np.asarray, tree)`` gives
 them, so this module (and the port) never imports JAX.  The port's module
 and parameter names follow the reference's parameter trees: the dotted path
 of a leaf in the reference tree is the port's state-dict key.  The one
 layout change: an int8 weight (a leaf named ``*_q8``, (in, out) in the
-reference) is (out, in) in the port, so it is transposed on the way in.
+reference) is (out, in) in the port, so it is transposed on the way in and
+back on the way out.
+
+``*_from_jax`` build the port's modules from a reference tree;
+``clip_to_numpy``, ``sam_to_numpy`` and ``vlm_to_numpy`` give the reference's
+tree of a port module (float leaves as float32 numpy, int8 as int8; CLIP and
+VLM blocks stacked on a leading layer axis, SAM's blocks a list), so a tower
+the port trained loads into the JAX package, and the fixture zoo's npz files
+(``training/zoo.py``, keys '/'-joined) carry either package's towers.  The
+CLIP tree's ``logit_scale`` belongs to the contrastive trainer
+(``logit_scale_from_jax``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -61,35 +71,45 @@ def load_flat(module: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
     return module
 
 
-def clip_from_jax(
-    np_params: Dict[str, Any], variant: CLIPVariant, device: DeviceLike = None, dtype=torch.float32
-) -> CLIPVisual:
-    """The reference's CLIP params (``init_clip`` tree, or ``quantize_clip``'s
-    with ``blocks_q8``) -> the port's visual tower.  The reference stacks its
-    blocks on a leading layer axis."""
-    visual = dict(np_params["visual"])
-    quant = "blocks_q8" in visual
-    key = "blocks_q8" if quant else "blocks"
-    stacked = visual.pop(key)
-    flat = flatten(visual)
-    for i in range(variant.v_layers):
+def _unstack(tower: Dict[str, Any], layers: int):
+    """A tower tree with its blocks stacked on a leading layer axis -> (the
+    flat dotted dict with one entry a layer, quantized or not)."""
+    tower = dict(tower)
+    key = "blocks_q8" if "blocks_q8" in tower else "blocks"
+    stacked = tower.pop(key)
+    flat = flatten(tower)
+    for i in range(layers):
         for name, arr in stacked.items():
             flat[f"{key}.{i}.{name}"] = np.asarray(arr)[i]
-    return load_flat(CLIPVisual(variant, dtype=dtype, device=device, quant=quant), flat)
+    return flat, key == "blocks_q8"
+
+
+def clip_from_jax(
+    np_params: Dict[str, Any], variant: CLIPVariant, device: DeviceLike = None, dtype=torch.float32,
+    impl: str = "flash",
+) -> CLIPVisual:
+    """The reference's CLIP params (``init_clip`` tree, or ``quantize_clip``'s
+    with ``blocks_q8``) -> the port's visual tower, built for the attention
+    route `impl`.  The reference stacks its blocks on a leading layer axis."""
+    flat, quant = _unstack(np_params["visual"], variant.v_layers)
+    return load_flat(CLIPVisual(variant, dtype=dtype, device=device, quant=quant, impl=impl), flat)
 
 
 def clip_text_from_jax(
-    np_params: Dict[str, Any], variant: CLIPVariant, device: DeviceLike = None, dtype=torch.float32
+    np_params: Dict[str, Any], variant: CLIPVariant, device: DeviceLike = None, dtype=torch.float32,
+    impl: str = "flash",
 ) -> CLIPText:
-    """The reference's CLIP params (``init_clip`` tree) -> the port's text
-    tower (``params["text"]``, blocks stacked on a leading layer axis)."""
-    text = dict(np_params["text"])
-    stacked = text.pop("blocks")
-    flat = flatten(text)
-    for i in range(variant.t_layers):
-        for name, arr in stacked.items():
-            flat[f"blocks.{i}.{name}"] = np.asarray(arr)[i]
-    return load_flat(CLIPText(variant, dtype=dtype, device=device), flat)
+    """The reference's CLIP params (``init_clip`` tree, or ``quantize_clip(...,
+    towers=("visual", "text"))``'s with ``blocks_q8``) -> the port's text
+    tower (``params["text"]``, blocks stacked on a leading layer axis),
+    built for the attention route `impl`."""
+    flat, quant = _unstack(np_params["text"], variant.t_layers)
+    return load_flat(CLIPText(variant, dtype=dtype, device=device, quant=quant, impl=impl), flat)
+
+
+def logit_scale_from_jax(np_params: Dict[str, Any]) -> float:
+    """The CLIP tree's ``logit_scale`` (the contrastive trainer's scalar)."""
+    return float(np.asarray(np_params["logit_scale"], np.float32))
 
 
 def sam_from_jax(
@@ -99,6 +119,80 @@ def sam_from_jax(
     with ``{b, w_q8, w_s}`` linears) -> the port's SAM."""
     quant = "w_q8" in np_params["encoder"]["blocks"][0]["qkv"]
     return load_flat(SAM(variant, dtype=dtype, device=device, quant=quant), flatten(np_params))
+
+
+Leaf = Optional[Callable[[torch.Tensor], Optional[torch.Tensor]]]
+
+
+def _numpy_leaf(t: torch.Tensor, key: str) -> np.ndarray:
+    a = t.detach().cpu()
+    a = a.numpy() if a.dtype == torch.int8 else a.float().numpy()
+    return np.swapaxes(a, -1, -2) if key.endswith("_q8") else a
+
+
+def module_tree(module: nn.Module, leaf: Leaf = None) -> dict:
+    """A module's parameters as the reference's nested tree (dicts; a level
+    whose keys are all indices becomes a list), in the reference's layouts.
+    `leaf` maps each parameter to the tensor to read (default: the
+    parameter; e.g. ``lambda p: p.grad`` for the gradients)."""
+    out: dict = {}
+    for key, p in module.named_parameters():
+        t = p if leaf is None else leaf(p)
+        node = out
+        parts = key.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = _numpy_leaf(t, key)
+
+    def relist(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: relist(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return relist(out)
+
+
+def _stacked(tower: dict) -> dict:
+    """A tower tree's block list stacked on a leading layer axis."""
+    tower = dict(tower)
+    for key in ("blocks", "blocks_q8"):
+        if key in tower:
+            blocks = tower[key]
+            tower[key] = {name: np.stack([b[name] for b in blocks]) for name in blocks[0]}
+    return tower
+
+
+def clip_to_numpy(visual: Optional[CLIPVisual] = None, text: Optional[CLIPText] = None,
+                  logit_scale=None, leaf: Leaf = None) -> dict:
+    """The port's CLIP towers -> the reference's ``init_clip`` tree (either
+    tower may be absent; ``blocks_q8`` for a quantized one) with
+    ``logit_scale`` when given (a float or a 0-dim tensor)."""
+    tree = {}
+    if visual is not None:
+        tree["visual"] = _stacked(module_tree(visual, leaf))
+    if text is not None:
+        tree["text"] = _stacked(module_tree(text, leaf))
+    if logit_scale is not None:
+        if isinstance(logit_scale, torch.Tensor):
+            logit_scale = _numpy_leaf(logit_scale if leaf is None else leaf(logit_scale), "")
+        tree["logit_scale"] = np.asarray(logit_scale, np.float32)
+    return tree
+
+
+def sam_to_numpy(sam: SAM, leaf: Leaf = None) -> dict:
+    """The port's SAM -> the reference's ``init_sam`` tree (list-indexed
+    encoder blocks and decoder layers; ``{b, w_q8, w_s}`` linears when
+    quantized)."""
+    return module_tree(sam, leaf)
+
+
+def vlm_to_numpy(vlm: VLM, leaf: Leaf = None) -> dict:
+    """The port's VLM -> the reference's ``init_vlm`` tree (blocks stacked
+    on a leading layer axis)."""
+    return _stacked(module_tree(vlm, leaf))
 
 
 def vlm_from_jax(

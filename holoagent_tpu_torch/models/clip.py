@@ -7,16 +7,27 @@ kernel K2's causal mode on the card.
 
 ``preprocess`` crops, resizes (``ops/resize.py``'s cubic, as
 ``jax.image.resize``) and normalizes frames for the image tower.
-``quantize_clip`` gives the int8 (W8A8) image tower: its blocks become
-``blocks_q8`` (``transformer.QBlock``) and every block matmul runs through
-kernel K3.  The text tower stays float, as the reference's ``quantize_clip``
-quantizes ``("visual",)`` only.  ``convert_open_clip`` / ``load_checkpoint``
+``quantize_clip`` gives an int8 (W8A8) tower, the image or the text one
+(the reference's ``quantize_clip(params, towers=("visual", "text"))``): its
+blocks become ``blocks_q8`` (``transformer.QBlock``) and every block matmul
+runs through kernel K3; the text tower's attention stays causal, through
+K2's causal mode on the card.  ``convert_open_clip`` / ``load_checkpoint``
 map an open_clip state dict onto the port's two towers, with the
 reference's key map.
+
+Each tower carries ``impl``, the attention route it was built for: "flash"
+(kernel K2 on the card; the production widths, head dim 64) unless its
+builder says "xla" (the plain version: the fixture-trained tiny towers,
+whose head dim K2 does not take).  Callers that do not name a route take
+the tower's.  ``forward_image`` and ``forward_text`` are the towers'
+differentiable forwards (a compute ``dtype`` cast inside the autograd
+graph, ``remat``); the serving entry points ``encode_image`` and
+``encode_text`` are the same functions without autograd.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -27,6 +38,8 @@ import torch.nn.functional as F
 from ..device import DeviceLike, generator, resolve
 from ..ops.resize import resize
 from . import transformer as tfm
+
+INIT_LOGIT_SCALE = math.log(1 / 0.07)  # the reference's init_clip logit_scale
 
 # open_clip / CLIP normalization constants
 IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -57,19 +70,28 @@ VARIANTS = {
 }
 
 
+IMPLS = ("flash", "xla")
+
+
 class CLIPVisual(nn.Module):
     """Visual tower parameters, named and laid out as the reference's
     ``params["visual"]``.  Parameters live in the working dtype.  With
-    ``quant`` the blocks are ``blocks_q8`` (int8, see ``quantize_clip``)."""
+    ``quant`` the blocks are ``blocks_q8`` (int8, see ``quantize_clip``).
+    ``impl``: the attention route the tower was built for (module
+    docstring)."""
 
-    def __init__(self, variant: CLIPVariant, dtype=torch.float32, device: DeviceLike = None, quant: bool = False):
+    def __init__(self, variant: CLIPVariant, dtype=torch.float32, device: DeviceLike = None, quant: bool = False,
+                 impl: str = "flash"):
         super().__init__()
         dev = resolve(device)
         kw = dict(dtype=dtype, device=dev)
         w = variant.v_width
         n_patches = (variant.image_size // variant.patch) ** 2
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.variant = variant
         self.quant = quant
+        self.impl = impl
         self.patch_w = tfm.frozen(torch.empty(variant.patch * variant.patch * 3, w, **kw))
         self.cls = tfm.frozen(torch.empty(w, **kw))
         self.pos = tfm.frozen(torch.empty(n_patches + 1, w, **kw))
@@ -86,17 +108,26 @@ class CLIPVisual(nn.Module):
 
 class CLIPText(nn.Module):
     """Text tower parameters, named and laid out as the reference's
-    ``params["text"]``, in the working dtype."""
+    ``params["text"]``, in the working dtype.  With ``quant`` the blocks are
+    ``blocks_q8``; ``impl`` as ``CLIPVisual``'s."""
 
-    def __init__(self, variant: CLIPVariant, dtype=torch.float32, device: DeviceLike = None):
+    def __init__(self, variant: CLIPVariant, dtype=torch.float32, device: DeviceLike = None, quant: bool = False,
+                 impl: str = "flash"):
         super().__init__()
         dev = resolve(device)
         kw = dict(dtype=dtype, device=dev)
         w = variant.t_width
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.variant = variant
+        self.quant = quant
+        self.impl = impl
         self.tok_emb = tfm.frozen(torch.empty(variant.vocab, w, **kw))
         self.pos = tfm.frozen(torch.empty(variant.ctx, w, **kw))
-        self.blocks = nn.ModuleList(tfm.Block(w, 4 * w, dtype=dtype, device=dev) for _ in range(variant.t_layers))
+        blocks = nn.ModuleList(
+            (tfm.QBlock if quant else tfm.Block)(w, 4 * w, dtype=dtype, device=dev) for _ in range(variant.t_layers)
+        )
+        setattr(self, "blocks_q8" if quant else "blocks", blocks)
         self.ln_final_g = tfm.frozen(torch.ones(w, **kw))
         self.ln_final_b = tfm.frozen(torch.zeros(w, **kw))
         self.proj = tfm.frozen(torch.empty(w, variant.embed_dim, **kw))
@@ -125,25 +156,27 @@ def _init_visual_(model: CLIPVisual, gen: torch.Generator) -> None:
 
 
 def init_clip_visual(
-    variant: CLIPVariant, seed: int = 0, dtype=torch.float32, device: DeviceLike = None
+    variant: CLIPVariant, seed: int = 0, dtype=torch.float32, device: DeviceLike = None, impl: str = "flash"
 ) -> CLIPVisual:
     """Random visual tower from a seeded torch.Generator, with the
     reference's ``init_clip`` shapes and scales (values differ from JAX's)."""
-    model = CLIPVisual(variant, dtype=dtype, device=device)
+    model = CLIPVisual(variant, dtype=dtype, device=device, impl=impl)
     _init_visual_(model, generator(seed))
     return model
 
 
 def init_clip(
-    variant: CLIPVariant, seed: int = 0, dtype=torch.float32, device: DeviceLike = None
+    variant: CLIPVariant, seed: int = 0, dtype=torch.float32, device: DeviceLike = None, impl: str = "flash"
 ) -> Tuple[CLIPVisual, CLIPText]:
     """Both towers from one seeded generator: the visual tower first (equal
     to ``init_clip_visual(variant, seed)``), then the text tower, with the
-    reference's ``init_clip`` shapes and scales."""
+    reference's ``init_clip`` shapes and scales.  The reference's tree also
+    holds ``logit_scale`` (log 1/0.07), which the contrastive trainer owns
+    (``INIT_LOGIT_SCALE``)."""
     gen = generator(seed)
-    visual = CLIPVisual(variant, dtype=dtype, device=device)
+    visual = CLIPVisual(variant, dtype=dtype, device=device, impl=impl)
     _init_visual_(visual, gen)
-    text = CLIPText(variant, dtype=dtype, device=device)
+    text = CLIPText(variant, dtype=dtype, device=device, impl=impl)
     tfm._normal_(text.tok_emb, 0.02, gen)
     tfm._normal_(text.pos, 0.01, gen)
     tfm._normal_(text.proj, variant.t_width**-0.5, gen)
@@ -153,49 +186,97 @@ def init_clip(
 
 
 @torch.no_grad()
-def quantize_clip(visual: CLIPVisual, dtype: Optional[torch.dtype] = None) -> CLIPVisual:
-    """Per-output-channel int8 quantization of the tower's blocks (W8A8,
-    ``transformer.quantize_block_``): a new tower with ``blocks_q8`` in place
-    of ``blocks``.  The block norms and biases and everything outside the
-    blocks stay float, in `dtype` (default: the tower's).  The scales are
-    computed from the tower's own values: a bf16 tower's in bf16, as the
-    reference's on bf16 params; a converted checkpoint's in float32 (quantize
-    the float32 tower with `dtype` the working dtype), as the reference's."""
-    out = CLIPVisual(visual.variant, dtype=dtype or visual.patch_w.dtype, device=visual.patch_w.device, quant=True)
-    for name, p in visual.named_parameters(recurse=False):
+def quantize_clip(tower, dtype: Optional[torch.dtype] = None):
+    """Per-output-channel int8 quantization of a tower's blocks (W8A8,
+    ``transformer.quantize_block_``): a new ``CLIPVisual`` or ``CLIPText``
+    with ``blocks_q8`` in place of ``blocks`` and the same ``impl``.  The
+    block norms and biases and everything outside the blocks stay float, in
+    `dtype` (default: the tower's).  The scales are computed from the
+    tower's own values: a bf16 tower's in bf16, as the reference's on bf16
+    params; a converted checkpoint's in float32 (quantize the float32 tower
+    with `dtype` the working dtype), as the reference's."""
+    like = next(tower.parameters())
+    out = type(tower)(tower.variant, dtype=dtype or like.dtype, device=like.device, quant=True, impl=tower.impl)
+    for name, p in tower.named_parameters(recurse=False):
         getattr(out, name).copy_(p)
-    for q, blk in zip(out.blocks_q8, visual.blocks):
+    for q, blk in zip(out.blocks_q8, tower.blocks):
         tfm.quantize_block_(q, blk)
     return out
 
 
-@torch.no_grad()
-def encode_image(
+def forward_image(
     visual: CLIPVisual,
     images: torch.Tensor,  # (B, S, S, 3) already normalized, channel-last
     impl: str = "xla",  # "flash": attention through kernel K2
     normalize: bool = True,
     qmm: str = "xla",  # int8 tower: "pallas" = the fused kernel's contract (see transformer._q8_mm)
+    dtype: Optional[torch.dtype] = None,  # compute dtype (default: the tower's)
+    remat: bool = False,  # recompute each block in the backward pass
 ) -> torch.Tensor:
-    """(B, S, S, 3) -> (B, embed_dim) float32 image features.  An int8
-    tower runs its blocks through K3 in either `qmm` mode; a float tower
-    ignores `qmm`, as the reference does."""
+    """(B, S, S, 3) -> (B, embed_dim) float32 image features, differentiable
+    (the reference's ``encode_image``).  An int8 tower runs its blocks
+    through K3 in either `qmm` mode; a float tower ignores `qmm`, as the
+    reference does.  A float tower's weights are cast to `dtype` where they
+    are used, as the reference casts them (the pre/post norms stay in their
+    own dtype)."""
     variant = visual.variant
-    dtype = visual.patch_w.dtype
+    dtype = dtype or visual.patch_w.dtype
     p = variant.patch
     b, s, _, _ = images.shape
     g = s // p
     x = images.reshape(b, g, p, g, p, 3).permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p * p * 3)
     x = tfm.linear(x.to(dtype), visual.patch_w)
-    cls = visual.cls.expand(b, 1, x.shape[-1])
-    x = torch.cat([cls, x], dim=1) + visual.pos
+    cls = visual.cls.to(dtype).expand(b, 1, x.shape[-1])
+    x = torch.cat([cls, x], dim=1) + visual.pos.to(dtype)
     x = tfm.layer_norm(x, visual.ln_pre_g, visual.ln_pre_b)
     if visual.quant:
         x = tfm.run_stack_q8(x, visual.blocks_q8, variant.v_heads, impl=impl, qmm=qmm)
     else:
-        x = tfm.run_stack(x, visual.blocks, variant.v_heads, impl=impl)
+        x = tfm.run_stack(x, tfm.cast_blocks(visual.blocks, dtype), variant.v_heads, impl=impl, remat=remat)
     x = tfm.layer_norm(x[:, 0], visual.ln_post_g, visual.ln_post_b)
-    feats = x.float() @ visual.proj.float()
+    feats = x.float() @ visual.proj.to(dtype).float()
+    if normalize:
+        feats = feats / torch.linalg.norm(feats, dim=-1, keepdim=True)
+    return feats
+
+
+@torch.no_grad()
+def encode_image(
+    visual: CLIPVisual,
+    images: torch.Tensor,
+    impl: str = "xla",
+    normalize: bool = True,
+    qmm: str = "xla",
+    dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """``forward_image`` without autograd: the serving entry point."""
+    return forward_image(visual, images, impl=impl, normalize=normalize, qmm=qmm, dtype=dtype)
+
+
+def forward_text(
+    text: CLIPText,
+    tokens: torch.Tensor,  # (B, ctx) integer token ids
+    impl: Optional[str] = None,  # "flash": causal attention through kernel K2 | "xla": its plain version
+    normalize: bool = True,
+    dtype: torch.dtype | None = None,  # compute dtype (default: the tower's)
+) -> torch.Tensor:
+    """(B, ctx) tokens -> (B, embed_dim) float32 text features, read at the
+    <eot> position (the largest token id), differentiable (the reference's
+    ``encode_text``).  `impl` defaults to the tower's.  Float weights are
+    cast to `dtype` where they are used, as the reference casts its tower
+    to its compute dtype; an int8 tower runs its blocks through K3."""
+    variant = text.variant
+    impl = impl or text.impl
+    dtype = dtype or text.tok_emb.dtype
+    tokens = torch.as_tensor(tokens, device=text.tok_emb.device).long()
+    x = text.tok_emb[tokens].to(dtype) + text.pos.to(dtype)
+    if text.quant:
+        x = tfm.run_stack_q8(x, text.blocks_q8, variant.t_heads, impl=impl, causal=True)
+    else:
+        x = tfm.run_stack(x, tfm.cast_blocks(text.blocks, dtype), variant.t_heads, impl=impl, causal=True)
+    x = tfm.layer_norm(x, text.ln_final_g, text.ln_final_b)
+    x = x[torch.arange(tokens.shape[0], device=x.device), tokens.argmax(dim=-1)]
+    feats = x.float() @ text.proj.to(dtype).float()
     if normalize:
         feats = feats / torch.linalg.norm(feats, dim=-1, keepdim=True)
     return feats
@@ -204,25 +285,13 @@ def encode_image(
 @torch.no_grad()
 def encode_text(
     text: CLIPText,
-    tokens: torch.Tensor,  # (B, ctx) integer token ids
-    impl: str = "flash",  # "flash": causal attention through kernel K2 | "xla": its plain version
+    tokens: torch.Tensor,
+    impl: Optional[str] = None,
     normalize: bool = True,
-    dtype: torch.dtype | None = None,  # compute dtype (default: the tower's)
+    dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """(B, ctx) tokens -> (B, embed_dim) float32 text features, read at the
-    <eot> position (the largest token id).  Weights are cast to `dtype` where
-    they are used, as the reference casts its tower to its compute dtype."""
-    variant = text.variant
-    dtype = dtype or text.tok_emb.dtype
-    tokens = torch.as_tensor(tokens, device=text.tok_emb.device).long()
-    x = text.tok_emb[tokens].to(dtype) + text.pos.to(dtype)
-    x = tfm.run_stack(x, text.blocks, variant.t_heads, impl=impl, causal=True)
-    x = tfm.layer_norm(x, text.ln_final_g, text.ln_final_b)
-    x = x[torch.arange(tokens.shape[0], device=x.device), tokens.argmax(dim=-1)]
-    feats = x.float() @ text.proj.to(dtype).float()
-    if normalize:
-        feats = feats / torch.linalg.norm(feats, dim=-1, keepdim=True)
-    return feats
+    """``forward_text`` without autograd: the serving entry point."""
+    return forward_text(text, tokens, impl=impl, normalize=normalize, dtype=dtype)
 
 
 # active template set (reference utils/clip_utils.py:271-335 keeps two)
@@ -303,7 +372,7 @@ def text_features_multi_template(
     templates: Sequence[str] = TEMPLATES,
     dtype: torch.dtype = torch.bfloat16,
     batch_size: int = 256,
-    impl: str = "flash",
+    impl: Optional[str] = None,  # default: the tower's
 ) -> torch.Tensor:
     """Mean text embedding over prompt templates per label (reference
     utils/clip_utils.py:257-349): (len(labels), D) float32 on the tower's
@@ -380,8 +449,8 @@ def convert_open_clip(state: Dict[str, torch.Tensor], variant: CLIPVariant, dtyp
     """Map an open_clip CLIP state dict (torch tensors or numpy arrays) onto
     the port's visual and text towers, in `dtype` on `device` (the card
     unless the caller asks for the CPU), through ``bridge.py``.  The
-    reference's tree also carries ``logit_scale``, which no tower of the
-    port uses."""
+    reference's tree also carries ``logit_scale``, which only the
+    contrastive trainer uses (``bridge.logit_scale_from_jax``)."""
     from ..bridge import clip_from_jax, clip_text_from_jax
 
     device = resolve(device)

@@ -201,13 +201,14 @@ def _window_unpartition(x: torch.Tensor, win: int, padded, orig):
     return x.reshape(b, hp, wp, -1)[:, :h, :w]
 
 
-@torch.no_grad()
-def encode_image(enc: ImageEncoder, images: torch.Tensor, v: SAMVariant, impl: str = "xla") -> torch.Tensor:
+def forward_image(enc: ImageEncoder, images: torch.Tensor, v: SAMVariant, impl: str = "xla") -> torch.Tensor:
     """(B, S, S, 3) normalized image -> (B, g, g, out_chans) embedding, in
-    the encoder's dtype.  impl="flash" runs every attention layer, windowed
-    and global, through kernel K1.  An int8 encoder (``quantize_sam``) runs
-    its block matmuls through K3: qkv, proj and lin2 round once to the
-    working dtype, lin1 stays float32 into the GELU."""
+    the encoder's dtype, differentiable (the training loss's forward;
+    ``encode_image`` is the serving entry point, without autograd).
+    impl="flash" runs every attention layer, windowed and global, through
+    kernel K1.  An int8 encoder (``quantize_sam``) runs its block matmuls
+    through K3: qkv, proj and lin2 round once to the working dtype, lin1
+    stays float32 into the GELU."""
     dtype = enc.patch_w.dtype
     b, s, _, _ = images.shape
     p = v.patch
@@ -236,6 +237,12 @@ def encode_image(enc: ImageEncoder, images: torch.Tensor, v: SAMVariant, impl: s
     w2 = enc.neck_conv2.permute(3, 2, 0, 1)  # HWIO -> OIHW
     x = F.conv2d(x.float().permute(0, 3, 1, 2), w2, padding=1).permute(0, 2, 3, 1).to(dtype)
     return _ln(x, enc.neck_ln2_g, enc.neck_ln2_b)
+
+
+@torch.no_grad()
+def encode_image(enc: ImageEncoder, images: torch.Tensor, v: SAMVariant, impl: str = "xla") -> torch.Tensor:
+    """``forward_image`` without autograd: the serving entry point."""
+    return forward_image(enc, images, v, impl=impl)
 
 
 # ---------------------------------------------------------------------------

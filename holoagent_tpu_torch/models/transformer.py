@@ -6,6 +6,13 @@ float32 and rounds once with the bias added, as the reference's
 ``preferred_element_type=float32`` einsum plus bias, cast once.  Layer norms
 and softmax run in float32.
 
+Training: ``trainable`` turns a tower's float parameters on for autograd;
+``run_stack(remat=True)`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), and
+``cast_blocks`` gives a block stack in a compute dtype inside the autograd
+graph (the reference casts its float32 params to the compute dtype in the
+forward).
+
 The int8 (W8A8) half: ``QBlock`` holds a block's matmul weights as int8
 **(out, in)** with float32 per-output-channel scales; every int8 product
 goes through ``ops/quant_matmul`` (kernel K3 on a CUDA tensor, its plain
@@ -14,11 +21,13 @@ version on the CPU).
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention, flash_attention_ref
 from ..ops.quant_matmul import batched_quant_matmul
@@ -81,6 +90,25 @@ def frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def trainable(module: nn.Module) -> nn.Module:
+    """Turn autograd on for every floating-point parameter of `module` (int8
+    weights stay frozen); returns the module."""
+    for p in module.parameters():
+        if p.is_floating_point():
+            p.requires_grad_(True)
+    return module
+
+
+def cast_blocks(blocks: Sequence[nn.Module], dtype: torch.dtype) -> Sequence:
+    """The blocks' parameters in `dtype`, as the reference's
+    ``jax.tree.map(lambda a: a.astype(dtype), blocks)``: the blocks
+    themselves when they are in `dtype` already, else one namespace a block
+    whose casts stay in the autograd graph."""
+    if all(p.dtype == dtype for blk in blocks for p in blk.parameters(recurse=False)):
+        return blocks
+    return [SimpleNamespace(**{n: p.to(dtype) for n, p in blk.named_parameters(recurse=False)}) for blk in blocks]
+
+
 class Block(nn.Module):
     """Parameters of one pre-LN block, named and laid out as the reference's
     per-layer slice of ``init_block_stack``."""
@@ -134,10 +162,17 @@ def run_stack(
     num_heads: int,
     impl: str = "xla",
     causal: bool = False,
+    remat: bool = False,
 ) -> torch.Tensor:
-    """Run the blocks in order (the reference scans its stacked params)."""
+    """Run the blocks in order (the reference scans its stacked params).
+    With `remat` and autograd recording, each block keeps only its input
+    and recomputes the rest in the backward pass."""
+    remat = remat and torch.is_grad_enabled()
     for p in blocks:
-        x = block(x, p, num_heads, impl=impl, causal=causal)
+        if remat:
+            x = checkpoint(block, x, p, num_heads, impl, causal, use_reentrant=False)
+        else:
+            x = block(x, p, num_heads, impl=impl, causal=causal)
     return x
 
 
@@ -230,25 +265,29 @@ def quantize_block_(q: QBlock, blk: Block) -> None:
         getattr(q, f"{name}_s").copy_(w_s)
 
 
-def attention_q8(x: torch.Tensor, p: QBlock, num_heads: int, impl: str = "xla", qmm: str = "xla"):
+def attention_q8(x: torch.Tensor, p: QBlock, num_heads: int, impl: str = "xla", qmm: str = "xla",
+                 causal: bool = False):
     """Multi-head self-attention over int8 projections (the attention
-    contractions stay in x's dtype, through K2 or its plain version)."""
+    contractions stay in x's dtype, through K2 or its plain version).
+    ``causal``: the text tower's mask (the reference's additive causal mask
+    on its dense path), through K2's causal mode on the card."""
     qkv = _q8_mm(x, p.wqkv_q8, p.wqkv_s, p.bqkv, qmm=qmm)
-    return _q8_mm(_attend(qkv, num_heads, impl), p.wo_q8, p.wo_s, p.bo, qmm=qmm)
+    return _q8_mm(_attend(qkv, num_heads, impl, causal), p.wo_q8, p.wo_s, p.bo, qmm=qmm)
 
 
-def block_q8(x, p: QBlock, num_heads: int, act=gelu, impl: str = "xla", qmm: str = "xla"):
+def block_q8(x, p: QBlock, num_heads: int, act=gelu, impl: str = "xla", qmm: str = "xla", causal: bool = False):
     """Pre-LN block over int8-quantized matmul weights."""
-    x = x + attention_q8(layer_norm(x, p.ln1_g, p.ln1_b), p, num_heads, impl=impl, qmm=qmm)
+    x = x + attention_q8(layer_norm(x, p.ln1_g, p.ln1_b), p, num_heads, impl=impl, qmm=qmm, causal=causal)
     h = layer_norm(x, p.ln2_g, p.ln2_b)
     mid = _q8_mm(h, p.w1_q8, p.w1_s, p.b1, act=act, qmm=qmm)
     return x + _q8_mm(mid, p.w2_q8, p.w2_s, p.b2, qmm=qmm)
 
 
 def run_stack_q8(
-    x: torch.Tensor, blocks: Sequence[QBlock], num_heads: int, impl: str = "xla", qmm: str = "xla"
+    x: torch.Tensor, blocks: Sequence[QBlock], num_heads: int, impl: str = "xla", qmm: str = "xla",
+    causal: bool = False,
 ) -> torch.Tensor:
     """Run the quantized blocks in order (the reference scans them)."""
     for p in blocks:
-        x = block_q8(x, p, num_heads, impl=impl, qmm=qmm)
+        x = block_q8(x, p, num_heads, impl=impl, qmm=qmm, causal=causal)
     return x

@@ -246,11 +246,12 @@ def _embed(vlm: VLM, ids: torch.Tensor) -> torch.Tensor:
 def encode_images(vlm: VLM, visual: clip_mod.CLIPVisual, images: torch.Tensor) -> torch.Tensor:
     """(N, S, S, 3) preprocessed images -> (N, image_tokens, width) vision
     token blocks in the LM's dtype: the CLIP tower's pooled, normalized
-    embedding (its attention through kernel K2 on the card), the projector
+    embedding (its attention on the tower's route, ``CLIPVisual.impl``:
+    kernel K2 on the card for the production towers), the projector
     (+ GELU and ``proj2`` when present), tiled over ``image_tokens`` slots
     with the positional ramp added.  The tower runs in its own dtype."""
     dtype = vlm.dtype
-    feats = clip_mod.encode_image(visual, images, impl="flash", normalize=True)  # (N, D) f32
+    feats = clip_mod.encode_image(visual, images, impl=visual.impl, normalize=True)  # (N, D) f32
     proj = _mm_f32(feats.to(dtype), vlm.proj_w) + vlm.proj_b.float()
     if hasattr(vlm, "proj2_w"):
         # LLaVA-style 2-layer projector: linear_1 -> gelu -> linear_2
@@ -354,8 +355,7 @@ def _last(x: torch.Tensor, valid_len: torch.Tensor) -> torch.Tensor:
     return x[torch.arange(x.shape[0], device=x.device), valid_len - 1]
 
 
-@torch.no_grad()
-def prefill(
+def forward_prefill(
     vlm: VLM,
     embeddings: torch.Tensor,  # (B, T, W) already-embedded prompt (text + vision)
     valid_len,  # (B,) valid lengths
@@ -366,6 +366,10 @@ def prefill(
     """Run the prompt through the blocks and write each layer's K/V into the
     cache (positions :T of `rows`) and `valid_len` into its lengths.
     Returns (float32 logits at the last valid position (B, vocab), cache).
+    Differentiable (the training step's forward, ``training/distill.py``):
+    the logits do not read the cache, and the cache's in-place writes only
+    record the K/V; ``prefill`` is the serving entry point, without
+    autograd.
 
     gpt: each layer's attention takes q, k and v as views of the fused
     (B, T, 3W) projection (``transformer._attend``), causal, through K2 on
@@ -398,6 +402,19 @@ def prefill(
     for r0, r1 in runs:
         cache.length[r0:r1] = valid_len[r0:r1]
     return _mm_f32(x, head.t()), cache
+
+
+@torch.no_grad()
+def prefill(
+    vlm: VLM,
+    embeddings: torch.Tensor,
+    valid_len,
+    cache: KVCache,
+    impl: str = "flash",
+    rows=None,
+) -> Tuple[torch.Tensor, KVCache]:
+    """``forward_prefill`` without autograd: the serving entry point."""
+    return forward_prefill(vlm, embeddings, valid_len, cache, impl=impl, rows=rows)
 
 
 def _prefill_llama(vlm: VLM, embeddings: torch.Tensor, cache: KVCache, runs) -> torch.Tensor:

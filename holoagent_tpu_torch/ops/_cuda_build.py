@@ -94,6 +94,19 @@ def check_input(x: torch.Tensor, name: str, dtype: torch.dtype) -> None:
         raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
 
 
+def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when grad mode is on and an input requires grad.  A kernel
+    writes a fresh buffer through ctypes, so its output would carry no
+    ``grad_fn`` and autograd would silently drop every gradient through
+    it; the plain versions (``impl="xla"``, what the reference's training
+    runs) differentiate."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the CUDA kernel has no backward; "
+            'run the differentiable forward with impl="xla" (the plain version)'
+        )
+
+
 def aligned_contiguous(x: torch.Tensor) -> torch.Tensor:
     """`x`, contiguous and 16-byte aligned (a copy when it is not)."""
     x = x.contiguous()

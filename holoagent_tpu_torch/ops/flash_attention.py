@@ -9,7 +9,10 @@ Beside each wrapper sits its plain PyTorch version (``*_ref``): dense float32
 scores from inputs in the working dtype, bias and masks, softmax, the
 probabilities cast to the input dtype, then P.V with float32 accumulation.
 A wrapper takes the plain version only for a tensor on the CPU; a CUDA
-tensor goes through a kernel or the wrapper raises.  Each wrapper counts
+tensor goes through a kernel or the wrapper raises.  The kernels have no
+backward: under grad mode a CUDA input that requires grad raises
+(``_cuda_build.refuse_autograd``); the training forwards run the plain
+versions (``impl="xla"``), as the reference's training does.  Each wrapper counts
 its kernel launches in ``<wrapper>.launches``; while ``<wrapper>.trace`` is a
 list, it also appends CUDA events around each launch (see ``_cuda_build.launch``).
 
@@ -46,7 +49,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ._cuda_build import CudaLibrary, aligned_contiguous, check_input, kernel_input, launch
+from ._cuda_build import CudaLibrary, aligned_contiguous, check_input, kernel_input, launch, refuse_autograd
 
 NEG_INF = -1e30
 HEAD_DIM = 64  # K2's head dim (CLIP ViT-L/14, the VLMs), and K1's for SAM vit_b and vit_l
@@ -221,6 +224,7 @@ def flash_attention_2d(
         raise ValueError(f"bias shapes {bias_h.shape} {bias_w.shape} for q {q.shape}")
     if q.device.type == "cpu":
         return flash_attention_2d_ref(q, k, v, bias_h, bias_w, grid_hw)
+    refuse_autograd("flash_attention_2d", q, k, v, bias_h, bias_w)
     k1_route(h, w, d)
     flat = q.dim() == 3
     if flat:
@@ -257,6 +261,7 @@ def flash_attention(
     b, h, t, d = q.shape
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
+    refuse_autograd("flash_attention", q, k, v)
     if d != HEAD_DIM:
         raise ValueError(f"head dim {d}: K2 takes {HEAD_DIM}")
     entry = {"resident": "ha_flash_attention_resident", "long": "ha_flash_attention_long"}[k2_route(t, causal)]

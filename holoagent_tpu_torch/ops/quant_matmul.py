@@ -27,7 +27,9 @@ quantizes or carries over a quantized tree (``models/transformer.py``,
 The plain version forms the product in float64, which is exact (|sum| <=
 127^2 * K < 2^53 for any K the towers have) and runs on the CPU and on CUDA
 alike.  A wrapper takes it only for a tensor on the CPU; a CUDA tensor goes
-through the kernel or the wrapper raises.  ``quant_matmul.launches`` counts
+through the kernel or the wrapper raises (and, under grad mode, raises for
+an input that requires grad: the kernel has no backward;
+``_cuda_build.refuse_autograd``).  ``quant_matmul.launches`` counts
 kernel launches; while ``quant_matmul.trace`` is a list it also collects
 CUDA events around each launch (``_cuda_build.launch``).  GELU, where asked
 for, runs outside the kernel on the rounded output, as in the reference.
@@ -41,7 +43,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ._cuda_build import CudaLibrary, kernel_input, launch
+from ._cuda_build import CudaLibrary, kernel_input, launch, refuse_autograd
 
 INV_127 = float.fromhex("0x1.020408p-7")  # float32(1/127), exactly
 SCALE_FLOOR = 1e-12
@@ -121,6 +123,7 @@ def quant_matmul(
     if x.device.type == "cpu":
         out = quant_matmul_ref(x, w_q, w_s, bias, out_dtype)
     else:
+        refuse_autograd("quant_matmul", x, w_s, bias)
         if n % 8 or k % 16:
             raise ValueError(f"the kernel takes N % 8 == 0 and K % 16 == 0, got N={n} K={k}")
         xk = kernel_input(x, "x", x.dtype)

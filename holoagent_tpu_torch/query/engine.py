@@ -11,9 +11,10 @@ reference fsr_vln/memory/hmsg/graph/graph.py:2216-2257 (query_floor),
 (query/vlm_backend.py: ClipVLM on the card, or the GT-backed OracleVLM).
 Per-stage wall-clock is reported in the reference's res_dict schema
 (LLM_Parse_Time / FastMatching / ObjectInImageCheck / VLM_Rethinking /
-Re_Matching / Total_Time).  Text features come from the CLIP text tower
-(kernel K2's causal mode on the card); the object gallery lives on the
-engine's device.
+Re_Matching / Total_Time).  Text features come from the CLIP text tower,
+on the tower's own attention route (``CLIPText.impl``: kernel K2's causal
+mode on the card for the production towers); the object gallery lives on
+the engine's device.
 """
 
 from __future__ import annotations

@@ -148,8 +148,9 @@ class ClipVLM:
     """CLIP-similarity backend: zero-shot verification and ranking on the
     towers' device.  The visual tower runs in its own working dtype (bf16 at
     the production config; the reference encodes in float32), its attention
-    through kernel K2 on the card; text features are the engine's
-    multi-template bf16 features (K2's causal mode on the card)."""
+    on the towers' own route (``impl``: kernel K2 on the card for the
+    production towers); text features are the engine's multi-template bf16
+    features (K2's causal mode on the card for those towers)."""
 
     def __init__(self, visual: clip_mod.CLIPVisual, text: clip_mod.CLIPText, tokenizer,
                  detect_threshold: float = 0.2):
@@ -168,7 +169,7 @@ class ClipVLM:
         # place; anything else is uploaded
         arr = torch.stack([torch.as_tensor(im, dtype=torch.float32, device=self.device) for im in images])
         pre = clip_mod.preprocess(arr, size=self.variant.image_size)
-        return clip_mod.encode_image(self.visual, pre, impl="flash").cpu().numpy()
+        return clip_mod.encode_image(self.visual, pre, impl=self.visual.impl).cpu().numpy()
 
     def _txt_feats(self, texts) -> np.ndarray:
         missing = [t for t in texts if t not in self._txt_cache]

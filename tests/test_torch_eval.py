@@ -275,20 +275,24 @@ def test_eval_graph_on_the_saved_oracle_graph(oracle_row, tmp_path):
 def test_run_writes_the_reference_schema(oracle_row, tmp_path, monkeypatch):
     """`run` over two layouts and two seeds, with run_one's result replaced
     by the fixture's: the summary's schema, the markdown table, the JSON;
-    the neural row raises."""
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eval_protocol.run(seeds=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eval_protocol.run_one(0, perception="neural", device="cpu")
+    the neural row runs each layout at its own seeds on the towers it is
+    given, and an unknown perception raises."""
+    with pytest.raises(ValueError, match="perception"):
+        eval_protocol.run_one(0, perception="learned", device="cpu")
     got = oracle_row[0]
     calls = []
-    monkeypatch.setattr(eval_protocol, "run_one",
-                        lambda s, layout, device, timer, save_dir: calls.append((layout, s, save_dir)) or got)
+
+    def run_one(s, layout, perception, device, timer, save_dir, towers):
+        calls.append((layout, s, save_dir, perception, towers))
+        return got
+
+    monkeypatch.setattr(eval_protocol, "run_one", run_one)
     timers = {}
     summary = eval_protocol.run(seeds=2, neural=False, out_md=str(tmp_path / "e.md"),
                                 out_json=str(tmp_path / "e.json"), device="cpu", save_dir=str(tmp_path),
                                 timers=timers)
-    assert calls == [(lay, s, str(tmp_path / f"{lay}_seed{s}")) for lay in eval_protocol.LAYOUTS for s in (0, 1)]
+    assert calls == [(lay, s, str(tmp_path / f"{lay}_seed{s}"), "oracle", None)
+                     for lay in eval_protocol.LAYOUTS for s in (0, 1)]
     assert set(timers) == {(lay, s) for lay in eval_protocol.LAYOUTS for s in (0, 1)}
     assert all(t.calls["run"] == 1 for t in timers.values())
     assert set(summary) == {"seeds", "wall_seconds", "metrics", "metrics_neural", "per_seed", "per_seed_neural"}
@@ -298,3 +302,12 @@ def test_run_writes_the_reference_schema(oracle_row, tmp_path, monkeypatch):
     assert json.loads((tmp_path / "e.json").read_text())["metrics"] == summary["metrics"]
     md = (tmp_path / "e.md").read_text()
     assert "| semantic top-1 | 1.000 | 0.000 | — | — |" in md
+    calls.clear()
+    towers = ("clip", "sam")
+    summary = eval_protocol.run(seeds=1, neural=True, neural_seeds=1, out_md=str(tmp_path / "n.md"), device="cpu",
+                                save_dir=str(tmp_path), towers=towers)
+    assert calls[len(eval_protocol.LAYOUTS):] == [(lay, 0, str(tmp_path / f"{lay}_seed0_neural"), "neural", towers)
+                                                  for lay in eval_protocol.LAYOUTS]
+    assert len(summary["per_seed_neural"]) == len(eval_protocol.LAYOUTS)
+    assert summary["metrics_neural"]["object precision@50"] == {"mean": 1.0, "std": 0.0}
+    assert "| semantic top-1 | 1.000 | 0.000 | 1.000 | 0.000 |" in (tmp_path / "n.md").read_text()
