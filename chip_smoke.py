@@ -129,7 +129,21 @@ Phases (any failure exits non-zero, with no result line):
      falls, its first value against a float32 forward) and distill_step
      on vlm-small; (w) the ViT-L/14 text
      tower at W8A8 (quantize_clip: K3 and K2's causal route) against the
-     bf16 tower over 256 prompts.  A [time] line after each phase says when it ended.  Per-stage ms, frames/s or ms/keyframe, peak memory; the kernels' launch
+     bf16 tower over 256 prompts; (x) the multi-device entry points at
+     W = torch.cuda.device_count() ranks through parallel/launch.py (one
+     NCCL rank a card; on a one-card machine W = 1, a real NCCL group whose
+     collectives are one-rank calls, every local program at full width):
+     (x1) apps.build_map.run with pipeline.sharded_mapping on (the
+     ShardedMapper: DP extraction through K1 and K2, the row-sharded
+     scene), its scene held bit for bit (keys, counts) to the single-device
+     insert + fuse over the same FrameFeatures, the extraction's features
+     to the plain path's; (x2) topk_cosine_sharded at retrieval_bench's
+     gallery; (x3) prefill_sp at vlm-small and llava-tinyllama over a
+     1024-token prompt against the float32 and the bf16 prefill, then the
+     ContinuousBatcher with a mesh against one without; (x4)
+     pipeline_apply and moe_apply against the sequential stack and the
+     dense reference; (x5) make_train_step(mesh=...) at ViT-L/14, B = 32,
+     against the single-device step.  A [time] line after each phase says when it ended.  Per-stage ms, frames/s or ms/keyframe, peak memory; the kernels' launch
      counts and their device time inside each run.  Every K1, K2 and K3
      shape a path launched that no case of phase 3 held gets its own case
      before the kernels line.
@@ -142,6 +156,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import functools
 import io
 import json
 import math
@@ -168,7 +183,7 @@ from holoagent_tpu_torch.agent.voice_client import LoopbackVoiceServer  # noqa: 
 from holoagent_tpu_torch.apps import batch_map, build_map, eval_protocol, query_bench, retrieval_bench, serving_bench  # noqa: E402,E501
 from holoagent_tpu_torch.apps import correctness_suite, lio_bench, visualize_graph  # noqa: E402
 from holoagent_tpu_torch.apps.common import load_dataset, load_models, tokenizer  # noqa: E402
-from holoagent_tpu_torch.config import from_dict  # noqa: E402
+from holoagent_tpu_torch.config import MeshConfig, from_dict  # noqa: E402
 from holoagent_tpu_torch.dataloader import RGBDFrame, SyntheticDataset, SyntheticScene  # noqa: E402
 from holoagent_tpu_torch.dataloader.export import hm3dsem_k, write_hm3dsem, write_horizon, write_replica  # noqa: E402
 from holoagent_tpu_torch.dataloader.hm3dsem import HM3DSemDataset  # noqa: E402
@@ -180,6 +195,7 @@ from holoagent_tpu_torch.memory import checkpoint as ckpt_mod  # noqa: E402
 from holoagent_tpu_torch.memory import instances as inst_mod  # noqa: E402
 from holoagent_tpu_torch.memory import mapping as mapping_mod  # noqa: E402
 from holoagent_tpu_torch.memory import multisession, navgraph  # noqa: E402
+from holoagent_tpu_torch.memory import scene as scene_mod, sharded_scene  # noqa: E402
 from holoagent_tpu_torch.memory.hmsg import HMSGraph  # noqa: E402
 from holoagent_tpu_torch.memory.mapping import Mapper  # noqa: E402
 from holoagent_tpu_torch.models import clip as clip_mod  # noqa: E402
@@ -188,11 +204,14 @@ from holoagent_tpu_torch.models import transformer as tfm  # noqa: E402
 from holoagent_tpu_torch.models import vlm as vlm_mod  # noqa: E402
 from holoagent_tpu_torch.nav import bt_xml  # noqa: E402
 from holoagent_tpu_torch.ops import flash_attention as fa  # noqa: E402
-from holoagent_tpu_torch.ops import solvers  # noqa: E402
+from holoagent_tpu_torch.ops import retrieval as retrieval_ops, solvers  # noqa: E402
 from holoagent_tpu_torch.ops.backproject import backproject  # noqa: E402
 from holoagent_tpu_torch.ops import quant_matmul as qm  # noqa: E402
 from holoagent_tpu_torch.ops import voxel as voxel_mod  # noqa: E402
 from holoagent_tpu_torch.ops.compact import I32_MAX  # noqa: E402
+from holoagent_tpu_torch.ops.voxel import GridSpec  # noqa: E402
+from holoagent_tpu_torch.parallel import launch, make_mesh, moe as moe_mod, pipeline as pipeline_mod  # noqa: E402
+from holoagent_tpu_torch.perception import extractor as extractor_mod  # noqa: E402
 from holoagent_tpu_torch.perception.extractor import FrameFeatures, extract_frame_features_tiered  # noqa: E402
 from holoagent_tpu_torch.perception.oracle import oracle_frame_features  # noqa: E402
 from holoagent_tpu_torch.query import ClipVLM, FSRQueryEngine, LLMParser, ParsedQuery, RuleParser, llm_client  # noqa: E402,E501
@@ -2796,6 +2815,420 @@ def text_q8_path(text, graph_dir, tag):
 
 
 
+# ---------------------------------------------------------------------------
+# (x): the multi-device entry points, at W = torch.cuda.device_count() ranks
+# through parallel/launch.py (one NCCL rank a card; W = 1 on a one-card
+# machine: a real NCCL group whose collectives are one-rank calls)
+# ---------------------------------------------------------------------------
+
+X_SHARED = {}  # the main process's towers and frames, for its in-process rank (W = 1)
+X_PROMPT_SENTENCES = 30  # (x3): one prompt of about 960 tokens, above the batcher's sp_threshold (512)
+X_NEW_TOKENS = 8
+X_TRAIN_STEPS = 2
+X_LR = 1e-4
+
+
+def x_inputs():
+    """The bf16 ViT-L/14 + SAM vit_b towers and the rendered frames of the
+    main paths (made again in a spawned rank)."""
+    if not X_SHARED:
+        cv = clip_mod.VARIANTS[CONFIG["models"]["clip"]["type"]]
+        clip, text = clip_mod.init_clip(cv, seed=SEED, dtype=torch.bfloat16)
+        sam = sam_mod.init_sam(sam_mod.VARIANTS[CONFIG["models"]["sam"]["type"]], seed=SEED + 1, dtype=torch.bfloat16)
+        X_SHARED.update(clip=clip, sam=sam, text=text,
+                        ds=SyntheticDataset(SyntheticScene.three_room(SEED), num_frames=FRAMES, hw=(480, 640),
+                                            seed=SEED))
+    return X_SHARED["clip"], X_SHARED["sam"], X_SHARED["text"], X_SHARED["ds"]
+
+
+def event_ms(fn, calls: int = 5) -> float:
+    """Median wall of `calls` synchronised calls after one warm-up, in ms by
+    CUDA events around each call (host overhead included)."""
+    fn()
+    out = []
+    for _ in range(calls):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
+
+
+def sorted_scene(scene) -> dict:
+    """A scene's used rows in key order (numpy)."""
+    n = int(scene.num)
+    order = torch.argsort(scene.key[:n])
+    return {f: getattr(scene, f)[:n][order].cpu().numpy()
+            for f in ("key", "count", "sum_pts", "sum_col", "sum_feat", "feat_count")}
+
+
+def x_sharded_mapping(mesh, world, lead, save_path, say):
+    """(x1) apps.build_map.run with pipeline.sharded_mapping: on over
+    (a)'s 6 keyframes at 640x480 and config/synthetic_tpu_3room.yaml's
+    settings: the ShardedMapper extracts through K1 and K2 (flash), counted;
+    its finalized scene's keys, counts and feature counts equal bit for bit
+    to the port's single-device insert_points + fuse_pixel_features driven
+    by the same FrameFeatures over the same frames, its sums within float
+    tolerance; nothing dropped in the exchange, and at W = 2, 4 and 8 the
+    fullest bucket these frames would fill within bucket_capacity's; the
+    graph saved and loaded."""
+    clip, sam, text, ds = x_inputs()
+    cfg = from_dict({**CONFIG, "main": {**CONFIG["main"], "save_path": save_path},
+                     "pipeline": {**CONFIG["pipeline"], "sharded_mapping": "on"}})
+    p = cfg.pipeline
+    keyframes = list(range(0, len(ds), p.skip_frames))
+    feats, mapped, mappers = [], [], []
+    real_extract, real_finalize = extractor_mod.extract_frames_dp, sharded_scene.ShardedMapper.finalize
+
+    def recorded(*a, **kw):
+        feats.append(real_extract(*a, **kw))
+        return feats[-1]
+
+    def finalize(self):
+        mapped.append(real_finalize(self))
+        mappers.append(self)
+        return mapped[-1]
+
+    extractor_mod.extract_frames_dp, sharded_scene.ShardedMapper.finalize = recorded, finalize
+    timer = StageTimer("cuda")
+    try:
+        (graph_dir, built), wall, launches, in_path, peak = counted(lambda: build_map.run(
+            cfg, dataset=ds, models=(clip, sam, clip.variant, sam.variant, text), timer=timer))
+    finally:
+        extractor_mod.extract_frames_dp, sharded_scene.ShardedMapper.finalize = real_extract, real_finalize
+    nf = len(keyframes)
+    mine = -(-nf // world)  # frames this rank extracts (the last batch padded)
+    label_batches = sum(math.ceil(len(v) * len(clip_mod.TEMPLATES) / 256)
+                        for v in (SCANNET_LABELS_20, DEFAULT_ROOM_TYPES)) if lead else 0
+    expect = {"flash_attention_2d": 12 * mine, "flash_attention": 24 * mine + text.variant.t_layers * label_batches,
+              "quant_matmul": 0}
+    if lead:
+        say(f"[x1] build_map.run, sharded_mapping on, W = {world}: {nf} keyframes in {1e3 * wall:.3f} ms "
+            f"({nf / wall:.3f} keyframes/s, labels, graph build and save included), peak {peak / 2**30:.3f} GiB")
+        report("x1", nf, wall, timer, launches, in_path, peak, {})
+    for name, n in expect.items():
+        check(launches[name] == n, f"x1: {name} launches {launches[name]} != {n}")
+    ms = mapped[0]
+    ff = FrameFeatures(*(torch.cat([f[i] for f in feats]) for i in range(5)))
+    grid = GridSpec.centered(p.voxel_size)
+    scene = scene_mod.init_scene(grid, p.point_capacity, clip.variant.embed_dim, "cuda")
+    fill = {n: 0 for n in (2, 4, 8)}  # the fullest bucket a W = n exchange of these frames would fill
+    for j, i in enumerate(keyframes):
+        frame = ds[i]
+        t = lambda a: torch.as_tensor(a, dtype=torch.float32).cuda()  # noqa: E731
+        pts, cols, valid = backproject(t(frame.depth), t(frame.rgb), Pinhole.from_matrix(frame.k), t(frame.pose),
+                                       1e-3, cfg.main.depth_cut)
+        keys = voxel_mod.keys_of(pts, valid, grid)
+        for n in fill:
+            for blk, ok in zip(keys.chunk(n), valid.chunk(n)):
+                u = torch.unique(blk[ok])
+                fill[n] = max(fill[n], int(torch.bincount(sharded_scene._owner_of(u, n), minlength=n).max()))
+        scene, rows = scene_mod.insert_points(scene, pts, cols, valid, fcap=p.frame_voxel_capacity)
+        scene = scene_mod.fuse_pixel_features(scene, rows, ff.masks[j].reshape(ff.masks.shape[1], -1), ff.valid[j],
+                                              ff.f_masks[j])
+    got, want = sorted_scene(ms.scene), sorted_scene(scene)
+    check(int(ms.scene.num) == int(scene.num), f"x1: scene rows {int(ms.scene.num)} != {int(scene.num)}")
+    for f in ("key", "count", "feat_count"):
+        check(np.array_equal(got[f], want[f]), f"x1: scene {f} differs from the single-device insert + fuse")
+    errs = {f: float(np.abs(got[f] - want[f]).max() / max(np.abs(want[f]).max(), 1e-30))
+            for f in ("sum_pts", "sum_col", "sum_feat")}
+    check(all(e <= 1e-5 for e in errs.values()), f"x1: sums against the single-device scene {errs}")
+    sm = mappers[0]
+    check(sm.dropped == 0, f"x1: {sm.dropped} aggregates dropped in the exchange")
+    buckets = {n: sharded_scene.bucket_capacity(-(-p.frame_voxel_capacity // n), n) for n in fill}
+    d = clip.variant.embed_dim
+    wire = {n: (n * buckets[n] * (44 + 4 * d), n * 4096 * (44 + 4 * d)) for n in fill}
+    n_inst = int(ms.instances.num())
+    check(n_inst >= 1 and bool(torch.isfinite(ms.instance_feats).all()), f"x1: {n_inst} instances")
+    # the attention route: the reference's ShardedMapper extracts at "xla";
+    # the port's at the config's (flash: K1, K2).  The same function: the
+    # first batch's features through the plain versions
+    sc = cfg.models.sam
+    kw = dict(points_per_side=sc.points_per_side, pred_iou_thresh=sc.pred_iou_thresh,
+              stability_thresh=sc.stability_score_thresh, min_area=float(sc.min_mask_region_area),
+              max_masks=sc.max_masks, masked_weight=p.clip_masked_weight, bbox_margin=float(p.clip_bbox_margin))
+    imgs = torch.stack([torch.as_tensor(ds[i].rgb, dtype=torch.float32).cuda() for i in keyframes[:world]])
+    plain = extractor_mod.extract_frames_dp(clip, sam, imgs, mesh, impl="xla", clip_impl="xla", **kw)
+    g_cos = F.cosine_similarity(ff.f_global[:world].float(), plain.f_global.float(), dim=-1).min().item()
+    same_masks = float((ff.masks[:world] == plain.masks).float().mean())
+    check(g_cos > 0.999, f"x1: frame features through K1/K2 against the plain path: min cosine {g_cos}")
+    if lead:
+        same_graph(built, HMSGraph.load(graph_dir))
+        say(f"[x1] scene {int(ms.scene.num)} rows: keys, counts and feature counts equal to the single-device "
+            f"insert_points + fuse_pixel_features over the same FrameFeatures; sums' max error relative to their "
+            f"max {errs}; {n_inst} instances; graph {len(built.rooms)} rooms, {len(built.objects)} objects, "
+            f"saved and loaded equal")
+        say(f"[x1] exchange: bucket {sm.bcap} a destination rank at W = {world}, wire bytes a frame a rank "
+            f"{sm.wire_bytes()}, dropped {sm.dropped}; at W = 2 / 4 / 8 the bucket would be "
+            f"{' / '.join(str(buckets[n]) for n in fill)} and these frames fill at most "
+            f"{' / '.join(str(fill[n]) for n in fill)} of it (the insert's distinct keys a rank and owner); "
+            f"insert + fuse bytes a frame a rank {' / '.join(str(wire[n][0]) for n in fill)} against the "
+            f"reference's fixed 4096-lane bucket's {' / '.join(str(wire[n][1]) for n in fill)}")
+        say(f"[x1] extraction through K1/K2 (flash) against the plain path (the reference's \"xla\"), first "
+            f"batch: whole-frame feature min cosine {g_cos:.6f}, mask pixels equal {same_masks:.6f}")
+    check(all(fill[n] <= buckets[n] for n in fill), f"x1: bucket fills {fill} against buckets {buckets}")
+    return dict(launches=launches, in_path=in_path, ms=1e3 * wall, peak=peak)
+
+
+def x_topk(mesh, world, lead, say):
+    """(x2) topk_cosine_sharded at retrieval_bench's gallery (4096 x 768,
+    64 queries, top-5) against topk_cosine."""
+    g, q, _, _ = retrieval_bench.make_inputs(4096, 64, 768, 20)
+    g, q = torch.from_numpy(g).cuda(), torch.from_numpy(q).cuda()
+    valid = torch.ones(g.shape[0], dtype=torch.bool, device="cuda")
+    ds_, di = retrieval_ops.topk_cosine(g, valid, q, 5)
+    ss, si = retrieval_ops.topk_cosine_sharded(g, valid, q, 5, mesh)
+    parity = float(np.mean([len(set(a) & set(b)) / 5 for a, b in zip(di.tolist(), si.tolist())]))
+    same = bool(torch.equal(di, si)) and bool(torch.equal(ds_, ss))
+    dense_ms = event_ms(lambda: retrieval_ops.topk_cosine(g, valid, q, 5))
+    sharded_ms = event_ms(lambda: retrieval_ops.topk_cosine_sharded(g, valid, q, 5, mesh))
+    if lead:
+        say(f"[x2] topk_cosine_sharded, W = {world}, gallery 4096 x 768, 64 queries, top-5: parity {parity} "
+            f"(indices and scores equal: {same}); {sharded_ms:.4f} ms a call against topk_cosine's {dense_ms:.4f} ms "
+            f"(CUDA events, host included)")
+    check(parity == 1.0, f"x2: parity {parity}")
+    return dict(ms=sharded_ms, dense_ms=dense_ms)
+
+
+def random_vlm(vv, seed):
+    """A bf16 VLM with seeded random weights drawn on the card (init_vlm
+    draws on the host, which takes long at TinyLlama's size): matmul weights
+    normal at fan_in^-0.5, embeddings and the head at 0.02, norms 1."""
+    vlm = vlm_mod.VLM(vv, dtype=torch.bfloat16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, prm in vlm.named_parameters():
+            if prm.dim() == 2:
+                std = 0.02 if name in ("tok_emb", "lm_head", "pos") else prm.shape[0] ** -0.5
+                prm.copy_(torch.randn(prm.shape, generator=g, device="cuda") * std)
+    return vlm
+
+
+def x_prefill_sp(mesh, world, lead, say):
+    """(x3) prefill_sp over one prompt of 1024 tokens at vlm-small and
+    llava-tinyllama: its last-position logits and K/V cache within 2^-6 of
+    max|ref| of the float32 prefill of the same weights, and (vlm-small)
+    of prefill through K2; the bf16 prefill's own error to float32 beside
+    it.  (llama's bf16 prefill rounds the normalised probabilities to bf16,
+    as the reference's does; prefill_sp keeps them float32, so against
+    float32 it is the closer of the two.)  Then ContinuousBatcher(mesh=...)
+    over a prompt above sp_threshold: after admission its first logits and
+    the slot's K/V rows within 2^-6 of max|ref| of the float32 prefill of
+    the same inputs and (vlm-small) of the batcher's without a mesh, and the
+    same generated tokens."""
+    out = {}
+    tok = tokenizer()
+    words = " ".join(f"object {i} lies in room {i % 7} near the window" for i in range(X_PROMPT_SENTENCES))
+    for name in ("vlm-small", "llava-tinyllama"):
+        vv = vlm_mod.VARIANTS[name]
+        vlm = vlm_mod.init_vlm(vv, seed=SEED, dtype=torch.bfloat16) if name == "vlm-small" else random_vlm(vv, SEED)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+        t = 1024
+        ids = torch.randint(0, min(vv.vocab, 49406), (1, t), device="cuda", generator=gen)
+        ns = torch.tensor([t], device="cuda")
+        emb = vlm_mod.text_prompt_embeddings(vlm, ids, ns)
+        n0 = fa.flash_attention.launches
+        ref_logits, ref_cache = vlm_mod.prefill(vlm, emb, ns, vlm_mod.init_cache(vv, 1, torch.bfloat16, "cuda"))
+        k2 = fa.flash_attention.launches - n0
+        n0 = fa.flash_attention.launches
+        sp_logits, sp_cache = vlm_mod.prefill_sp(vlm, emb, ns, mesh)
+        check(fa.flash_attention.launches == n0, f"x3 {name}: prefill_sp launched K2")
+        check(k2 == (vv.layers if vv.arch == "gpt" else 0), f"x3 {name}: K2 launches of prefill {k2}")
+        vlm32 = copy.deepcopy(vlm).float()
+        f32_logits, f32_cache = vlm_mod.prefill(vlm32, emb.float(), ns, vlm_mod.init_cache(vv, 1, torch.float32, "cuda"),
+                                                impl="xla")
+        errs = {}
+        for ref_tag, logits, cache in (("f32", f32_logits, f32_cache), ("bf16", ref_logits, ref_cache)):
+            for what, a, b in (("logits", sp_logits, logits), ("k", sp_cache.k[:, :, :t], cache.k[:, :, :t]),
+                               ("v", sp_cache.v[:, :, :t], cache.v[:, :, :t])):
+                errs[f"{what} vs {ref_tag}"] = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+            errs["bf16 prefill logits vs f32"] = float((ref_logits - f32_logits).abs().max() / f32_logits.abs().max())
+        held = [k for k in errs if k.endswith("vs f32") and not k.startswith("bf16")]
+        if vv.arch == "gpt":
+            held += [k for k in errs if k.endswith("vs bf16")]
+        for k in held:
+            check(errs[k] <= 2.0**-6, f"x3 {name}: {k} max error {errs[k]} of max|ref| > 2^-6")
+        check(bool(torch.isfinite(sp_logits).all()), f"x3 {name}: logits")
+        prefill_ms = event_ms(lambda: vlm_mod.prefill(vlm, emb, ns, vlm_mod.init_cache(vv, 1, torch.bfloat16, "cuda")),
+                              calls=3)
+        sp_ms = event_ms(lambda: vlm_mod.prefill_sp(vlm, emb, ns, mesh), calls=3)
+        visual = clip_mod.init_clip_visual(clip_mod.VARIANTS[vv.clip_variant], seed=1, dtype=torch.bfloat16)
+        texts, admitted = {}, {}
+        n_prompt = len(tok.encode(words)) + 1
+        check(n_prompt >= 512, f"x3: the prompt has {n_prompt} tokens, under sp_threshold")
+        real_prefill, real_sp = vlm_mod.prefill, vlm_mod.prefill_sp
+        for tag, kw in (("no mesh", {}), ("mesh", dict(mesh=mesh))):
+            first = []  # the admission's (inputs, prompt logits): the wave's prefill (slot 0) or prefill_sp
+
+            def rec(fn):
+                def wrapped(*a, **k):
+                    logits, cache = fn(*a, **k)
+                    first.append((a[1][:1], a[2], logits[0].float().clone()))
+                    return logits, cache
+                return wrapped
+
+            vlm_mod.prefill, vlm_mod.prefill_sp = rec(real_prefill), rec(real_sp)
+            try:
+                b = ContinuousBatcher(vlm, visual, max_batch=2, **kw)
+                t0 = time.perf_counter()
+                texts[tag] = b.generate(words, max_new_tokens=X_NEW_TOKENS)
+                texts[tag + " ms"] = 1e3 * (time.perf_counter() - t0)
+            finally:
+                vlm_mod.prefill, vlm_mod.prefill_sp = real_prefill, real_sp
+            # decode writes positions n_prompt on: the prompt's K/V rows are the admission's
+            admitted[tag] = dict(logits=first[0][2], k=b.cache.k[:, 0, :n_prompt].float(),
+                                 v=b.cache.v[:, 0, :n_prompt].float(),
+                                 length=int(torch.as_tensor(first[0][1]).reshape(-1)[0]))
+        # the float32 prefill of the mesh batcher's own prefill_sp inputs
+        sp_emb, sp_len, _ = first[0]
+        a_logits, a_cache = vlm_mod.prefill(vlm32, sp_emb.float(), torch.as_tensor(sp_len, device="cuda"),
+                                            vlm_mod.init_cache(vv, 1, torch.float32, "cuda"), impl="xla")
+        admitted["f32"] = dict(logits=a_logits[0], k=a_cache.k[:, 0, :n_prompt], v=a_cache.v[:, 0, :n_prompt])
+        del vlm32, a_cache
+        adm = {f"{what} vs {ref}": float((admitted["mesh"][what] - admitted[ref][what]).abs().max()
+                                         / admitted[ref][what].abs().max())
+               for ref in ("f32", "no mesh") for what in ("logits", "k", "v")}
+        adm_held = [k for k in adm if k.endswith("f32") or vv.arch == "gpt"]
+        if lead:
+            say(f"[x3] {name}, W = {world}, one prompt of {t} tokens, bf16: prefill_sp's max errors relative to "
+                f"max|ref| against the float32 prefill and the bf16 prefill ({'K2' if k2 else 'dense'}): {errs} "
+                f"(held: {held}); prefill {prefill_ms:.3f} ms, prefill_sp {sp_ms:.3f} ms (CUDA events, host included)")
+            say(f"[x3] {name}: ContinuousBatcher over a {n_prompt}-token prompt, {X_NEW_TOKENS} new tokens: "
+                f"without a mesh {texts['no mesh']!r} ({texts['no mesh ms']:.1f} ms), with the mesh "
+                f"{texts['mesh']!r} ({texts['mesh ms']:.1f} ms); after admission, the mesh batcher's first "
+                f"logits and slot K/V rows, max error of max|ref| against the float32 prefill of its inputs and "
+                f"against the batcher without a mesh: {adm} (held: {adm_held})")
+        check(admitted["mesh"]["length"] == admitted["no mesh"]["length"] == n_prompt,
+              f"x3 {name}: admitted lengths {admitted['mesh']['length']}, {admitted['no mesh']['length']}")
+        for k in adm_held:
+            check(adm[k] <= 2.0**-6,
+                  f"x3 {name}: the mesh batcher's admitted {k} max error {adm[k]} of max|ref| > 2^-6")
+        check(texts["mesh"] == texts["no mesh"], f"x3 {name}: the batcher with a mesh generates other tokens")
+        out[name] = dict(errs=errs, admitted=adm, prefill_ms=prefill_ms, sp_ms=sp_ms)
+        del vlm, visual, ref_cache, sp_cache, f32_cache
+        torch.cuda.empty_cache()
+    return out
+
+
+def x_pipeline_moe(world, lead, say):
+    """(x4) pipeline_apply over W stages (8 microbatches of (16, 256)) against
+    the sequential stack, bit for bit, and moe_apply (4 experts a rank, 256
+    tokens of width 256, top-2) against moe_dense_reference, under capacity
+    and with drops."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    smesh = DeviceMesh("cuda", torch.arange(world), mesh_dim_names=("stage",))
+    stages = [{"w": torch.randn(256, 256, device="cuda", generator=gen) * 256**-0.5,
+               "b": torch.zeros(256, device="cuda")} for _ in range(world)]
+    x = torch.randn(8, 16, 256, device="cuda", generator=gen)
+    fn = lambda p, h: torch.tanh(h @ p["w"] + p["b"])  # noqa: E731
+    got = pipeline_mod.pipeline_apply(fn, pipeline_mod.stack_stages(stages), x, smesh)
+    seq = torch.stack([functools.reduce(lambda h, p: fn(p, h), stages, mb) for mb in x])
+    check(torch.equal(got, seq), "x4: pipeline_apply differs from the sequential stack")
+    pipe_ms = event_ms(lambda: pipeline_mod.pipeline_apply(fn, pipeline_mod.stack_stages(stages), x, smesh))
+    emesh = DeviceMesh("cuda", torch.arange(world), mesh_dim_names=("expert",))
+    e = 4 * world
+    params = {k: v.cuda() for k, v in moe_mod.init_moe_mlp(e, 256, 512, scale=0.05, seed=SEED, device="cpu").items()}
+    gate_w = torch.randn(256, e, device="cuda", generator=gen) * 0.1
+    toks = torch.randn(256, 256, device="cuda", generator=gen)
+    dense = moe_mod.moe_dense_reference(params, gate_w, toks)
+    routed = moe_mod.moe_apply(params, gate_w, toks, emesh, capacity_factor=float(e))
+    err = float((routed - dense).abs().max())
+    check(err <= 1e-4, f"x4: moe_apply against the dense reference {err}")
+    dropped = moe_mod.moe_apply(params, gate_w, toks, emesh, capacity_factor=0.25)
+    check(bool(torch.isfinite(dropped).all()), "x4: moe_apply with drops is not finite")
+    moe_ms = event_ms(lambda: moe_mod.moe_apply(params, gate_w, toks, emesh, capacity_factor=float(e)))
+    if lead:
+        say(f"[x4] pipeline_apply, {world} stage(s) x 8 microbatches: equal to the sequential stack bit for bit, "
+            f"{pipe_ms:.3f} ms; moe_apply, {e} experts: max error to the dense reference {err:.3e}, "
+            f"{moe_ms:.3f} ms; with capacity factor 0.25 finite (CUDA events, host included)")
+    return dict(pipeline_ms=pipe_ms, moe_ms=moe_ms, moe_err=err)
+
+
+def x_train_step(mesh, world, lead, say):
+    """(x5) make_train_step(mesh=...) at ViT-L/14, bf16 on float32 masters,
+    B = 32, X_TRAIN_STEPS steps from (v)'s init and batch, against the
+    single-device make_train_step from the same init: the first loss
+    equal, the next within (v)'s relative tolerance, and the first step's
+    gradients (what the optimizer steps on) within 2^-6 of the leaf's
+    max|g| (floored at 1e-3 of the largest leaf's, as the CPU tests floor
+    the analytically-zero key biases); the weights' difference printed."""
+    cv = clip_mod.VARIANTS[CONFIG["models"]["clip"]["type"]]
+    base = contrastive.clip_params(*clip_mod.init_clip(cv, seed=SEED, dtype=torch.float32))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    imgs = torch.randn(VITL_BATCH, cv.image_size, cv.image_size, 3, device="cuda", generator=g)
+    toks = torch.from_numpy(tokenizer()([f"a photo of object {i} in the scene." for i in range(VITL_BATCH)])).cuda()
+    runs = {}
+    for tag, m in (("single", None), ("mesh", mesh)):
+        params = copy.deepcopy(base)
+        step = contrastive.make_train_step(cv, contrastive.init_train_state(params, lr=X_LR), mesh=m)
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, grads = [], [], None
+        for _ in range(X_TRAIN_STEPS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            losses.append(float(step(params, imgs, toks)))
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+            if grads is None:  # the gradients stay on the parameters after the update
+                grads = [q.grad.float().clone() for q in params.parameters()]
+        runs[tag] = (losses, ms, params, torch.cuda.max_memory_allocated() / 2**30, grads)
+    (l1, ms1, p1, peak1, g1), (l2, ms2, p2, peak2, g2) = runs["single"], runs["mesh"]
+    worst = max(float((a - b).detach().abs().max()) for a, b in zip(p1.parameters(), p2.parameters()))
+    top = max(float(g.abs().max()) for g in g1)
+    g_err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-3 * top) for a, b in zip(g2, g1))
+    ls_err = abs(float(p2.logit_scale.grad) - float(p1.logit_scale.grad)) / max(abs(float(p1.logit_scale.grad)),
+                                                                                  1e-3 * top)
+    if lead:
+        say(f"[x5] ViT-L/14 make_train_step, B = {VITL_BATCH}, {X_TRAIN_STEPS} steps: mesh (W = {world}) losses {l2} "
+            f"({ms2} ms, peak {peak2:.3f} GiB) against single-device {l1} ({ms1} ms, peak {peak1:.3f} GiB); "
+            f"first step's gradients: worst leaf's max error {g_err:.3e} of its max|g| (logit_scale "
+            f"{ls_err:.3e}); weights max |diff| after the steps {worst:.3e}")
+    check(abs(l2[0] - l1[0]) <= 1e-5 * abs(l1[0]), f"x5: first loss {l2[0]} != {l1[0]}")
+    check(all(abs(a - b) <= VITL_LOSS_RTOL * abs(b) for a, b in zip(l2, l1)), f"x5: losses {l2} vs {l1}")
+    check(g_err <= 2.0**-6, f"x5: the mesh step's gradients differ from the single-device step's by {g_err}")
+    del base, runs, p1, p2, g1, g2
+    torch.cuda.empty_cache()
+    return dict(ms=ms2, single_ms=ms1, losses=l2)
+
+
+def x_rank(rank, world, save_root):
+    """Phase (x) on one rank: every item, each counted; returns the paths'
+    launch counts (for the kernels line) and the numbers printed."""
+    lead = rank == 0
+    say = log if lead else (lambda *a: None)
+    mesh = make_mesh(MeshConfig(), "cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    say(f"[x] W = {world} rank(s), mesh {tuple(mesh.mesh.shape)} over NCCL ({torch.distributed.get_backend()}); "
+        f"card: {smi}")
+    paths, numbers = {}, {}
+    for tag, fn in (("(x1) ShardedMapper: build_map.run, sharded_mapping on",
+                     lambda: x_sharded_mapping(mesh, world, lead, os.path.join(save_root, "x1"), say)),
+                    ("(x2) topk_cosine_sharded", lambda: x_topk(mesh, world, lead, say)),
+                    ("(x3) prefill_sp + ContinuousBatcher(mesh)", lambda: x_prefill_sp(mesh, world, lead, say)),
+                    ("(x4) pipeline_apply, moe_apply", lambda: x_pipeline_moe(world, lead, say)),
+                    ("(x5) make_train_step(mesh)", lambda: x_train_step(mesh, world, lead, say))):
+        torch.cuda.reset_peak_memory_stats()
+        if tag.startswith("(x1)"):
+            res = fn()
+            paths[tag] = dict(launches=res.pop("launches"), in_path=res.pop("in_path"))
+        else:
+            res, wall, launches, in_path, peak = counted(fn)
+            paths[tag] = dict(launches=launches, in_path=in_path)
+            res = dict(res, wall_ms=1e3 * wall, peak=peak)
+        numbers[tag] = res
+        say(f"[x] {tag}: {numbers[tag].get('wall_ms', numbers[tag].get('ms'))} ms, peak "
+            f"{numbers[tag]['peak'] / 2**30:.3f} GiB; launches {paths[tag]['launches']}; card: {smi}")
+        if lead:
+            stamp(tag)
+    return dict(paths=paths, numbers=numbers)
+
+
 def hold_new_shapes(cases, paths):
     """A case for every K1, K2 and K3 shape a path launched that no case
     held: K1 and K2 as views of one packed projection, as _attention_2d and
@@ -3066,6 +3499,12 @@ def main() -> int:
             text, os.path.join(oracle_dir, "three_room_seed0", "graph"), "text-w8a8"))
         paths["(w) W8A8 text tower"] = dict(launches=launches, in_path=in_path)
         stamp("(w) W8A8 text tower")
+        X_SHARED.update(clip=clip, sam=sam, text=text, ds=ds)
+        torch.cuda.empty_cache()
+        x = launch.spawn(x_rank, torch.cuda.device_count(), "cuda", args=(os.path.join(tmp, "x"),))[0]
+        paths.update(x["paths"])
+        X_SHARED.clear()
+        stamp("(x) multi-device")
         check(not DEFERRED, f"accuracy gates missed in (u): {DEFERRED}")
     hold_new_shapes(cases, paths)
     stamp("cases of the paths' new shapes")

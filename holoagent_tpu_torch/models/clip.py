@@ -212,6 +212,7 @@ def forward_image(
     qmm: str = "xla",  # int8 tower: "pallas" = the fused kernel's contract (see transformer._q8_mm)
     dtype: Optional[torch.dtype] = None,  # compute dtype (default: the tower's)
     remat: bool = False,  # recompute each block in the backward pass
+    tp=None,  # (mesh, axis): the blocks tensor-parallel over that axis (transformer.block)
 ) -> torch.Tensor:
     """(B, S, S, 3) -> (B, embed_dim) float32 image features, differentiable
     (the reference's ``encode_image``).  An int8 tower runs its blocks
@@ -232,7 +233,7 @@ def forward_image(
     if visual.quant:
         x = tfm.run_stack_q8(x, visual.blocks_q8, variant.v_heads, impl=impl, qmm=qmm)
     else:
-        x = tfm.run_stack(x, tfm.cast_blocks(visual.blocks, dtype), variant.v_heads, impl=impl, remat=remat)
+        x = tfm.run_stack(x, tfm.cast_blocks(visual.blocks, dtype), variant.v_heads, impl=impl, remat=remat, tp=tp)
     x = tfm.layer_norm(x[:, 0], visual.ln_post_g, visual.ln_post_b)
     feats = x.float() @ visual.proj.to(dtype).float()
     if normalize:
@@ -259,6 +260,7 @@ def forward_text(
     impl: Optional[str] = None,  # "flash": causal attention through kernel K2 | "xla": its plain version
     normalize: bool = True,
     dtype: torch.dtype | None = None,  # compute dtype (default: the tower's)
+    tp=None,  # (mesh, axis): as forward_image's
 ) -> torch.Tensor:
     """(B, ctx) tokens -> (B, embed_dim) float32 text features, read at the
     <eot> position (the largest token id), differentiable (the reference's
@@ -273,7 +275,7 @@ def forward_text(
     if text.quant:
         x = tfm.run_stack_q8(x, text.blocks_q8, variant.t_heads, impl=impl, causal=True)
     else:
-        x = tfm.run_stack(x, tfm.cast_blocks(text.blocks, dtype), variant.t_heads, impl=impl, causal=True)
+        x = tfm.run_stack(x, tfm.cast_blocks(text.blocks, dtype), variant.t_heads, impl=impl, causal=True, tp=tp)
     x = tfm.layer_norm(x, text.ln_final_g, text.ln_final_b)
     x = x[torch.arange(tokens.shape[0], device=x.device), tokens.argmax(dim=-1)]
     feats = x.float() @ text.proj.to(dtype).float()

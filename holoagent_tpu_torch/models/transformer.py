@@ -31,6 +31,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention, flash_attention_ref
 from ..ops.quant_matmul import batched_quant_matmul
+from ..parallel import comm
+from ..parallel.sharding import tp_columns
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -146,14 +148,39 @@ def init_block_(blk: Block, gen: torch.Generator, layers: int) -> None:
     _normal_(blk.w2, proj_std, gen)
 
 
-def block(x, p: Block, num_heads: int, impl: str = "xla", causal: bool = False):
-    """One pre-LN transformer block."""
+def block(x, p: Block, num_heads: int, impl: str = "xla", causal: bool = False, tp=None):
+    """One pre-LN transformer block.  ``tp = (mesh, axis)``: Megatron tensor
+    parallelism over that mesh axis (``block_tp``)."""
+    if tp is not None:
+        return block_tp(x, p, num_heads, impl, causal, *tp)
     x = x + attention(
         layer_norm(x, p.ln1_g, p.ln1_b),
         p.wqkv, p.bqkv, p.wo, p.bo,
         num_heads, impl=impl, causal=causal,
     )
     return x + mlp(layer_norm(x, p.ln2_g, p.ln2_b), p.w1, p.b1, p.w2, p.b2)
+
+
+def block_tp(x, p: Block, num_heads: int, impl: str, causal: bool, mesh, axis: str):
+    """``block`` with its products split over a mesh axis of M ranks: rank m
+    computes heads [m H/M, (m+1) H/M) of q, k and v (``wqkv``/``bqkv``
+    columns of whole heads) and hidden columns [m F/M, (m+1) F/M) of the
+    MLP (``w1``/``b1``), then the row-split ``wo`` and ``w2`` products are
+    summed over the axis (one autograd all-reduce each, before their
+    biases).  The input of each split product enters through ``copy_to_tp``,
+    whose backward sums the partial input gradients."""
+    n, m = comm.size(mesh, axis), comm.index(mesh, axis)
+    w, f = p.wo.shape[0], p.w1.shape[1]
+    dev = x.device
+    qkv_cols = tp_columns(w, num_heads, m, n).to(dev)
+    att_rows = tp_columns(w, num_heads, m, n, packed=1).to(dev)
+    hid = torch.arange(m * (f // n), (m + 1) * (f // n), device=dev)
+    xn = comm.copy_to_tp(layer_norm(x, p.ln1_g, p.ln1_b), mesh, axis)
+    att = _attend(linear(xn, p.wqkv[:, qkv_cols], p.bqkv[qkv_cols]), num_heads // n, impl, causal)
+    x = x + (comm.reduce_from_tp(linear(att, p.wo[att_rows]), mesh, axis) + p.bo.to(x.dtype)).to(x.dtype)
+    h = comm.copy_to_tp(layer_norm(x, p.ln2_g, p.ln2_b), mesh, axis)
+    mid = gelu(linear(h, p.w1[:, hid], p.b1[hid]).float()).to(x.dtype)
+    return x + (comm.reduce_from_tp(linear(mid, p.w2[hid]), mesh, axis) + p.b2.to(x.dtype)).to(x.dtype)
 
 
 def run_stack(
@@ -163,16 +190,17 @@ def run_stack(
     impl: str = "xla",
     causal: bool = False,
     remat: bool = False,
+    tp=None,
 ) -> torch.Tensor:
     """Run the blocks in order (the reference scans its stacked params).
     With `remat` and autograd recording, each block keeps only its input
-    and recomputes the rest in the backward pass."""
+    and recomputes the rest in the backward pass.  `tp`: see ``block``."""
     remat = remat and torch.is_grad_enabled()
     for p in blocks:
         if remat:
-            x = checkpoint(block, x, p, num_heads, impl, causal, use_reentrant=False)
+            x = checkpoint(block, x, p, num_heads, impl, causal, tp, use_reentrant=False)
         else:
-            x = block(x, p, num_heads, impl=impl, causal=causal)
+            x = block(x, p, num_heads, impl=impl, causal=causal, tp=tp)
     return x
 
 

@@ -41,6 +41,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import DeviceLike, generator, resolve, upload
+from ..parallel import comm
+from ..parallel.ring_attention import ring_attention_local
 from . import clip as clip_mod
 from . import transformer as tfm
 
@@ -415,6 +417,72 @@ def prefill(
 ) -> Tuple[torch.Tensor, KVCache]:
     """``forward_prefill`` without autograd: the serving entry point."""
     return forward_prefill(vlm, embeddings, valid_len, cache, impl=impl, rows=rows)
+
+
+@torch.no_grad()
+def prefill_sp(vlm: VLM, embeddings: torch.Tensor, valid_len, mesh) -> Tuple[torch.Tensor, KVCache]:
+    """Sequence-parallel prefill: the prompt's token axis splits over the
+    mesh's "data" axis (T padded to its multiple) and every layer's
+    attention is ring attention (``parallel.ring_attention``), so no rank
+    holds the (T, T) scores; the rest of a layer runs on the rank's own
+    block of tokens.  `embeddings` (B, T, W) and `valid_len` (B,) are the
+    same on every rank.  Returns (float32 last-position logits (B, vocab),
+    a new KVCache with the whole prompt's K/V in the port's layout), the
+    same on every rank, so decode proceeds unchanged.  Both archs: llama
+    ropes at global positions and stores the pre-repeat K/V at n_kv heads."""
+    v = vlm.variant
+    dtype = vlm.dtype
+    nd, me = comm.size(mesh, "data"), comm.index(mesh, "data")
+    b, t, w = embeddings.shape
+    tp = t + (-t) % nd
+    tl = tp // nd
+    dh = w // v.heads
+    emb = F.pad(embeddings.to(dtype), (0, 0, 0, tp - t))
+    valid_len = upload(valid_len, vlm.device, torch.long)
+    ks, vs = [], []
+    if v.arch == "llama":
+        groups = v.heads // v.n_kv
+        x = comm.block(emb, mesh, "data", dim=1)
+        cos, sin = _rope_cos_sin(torch.arange(me * tl, (me + 1) * tl, device=x.device), dh, v.rope_theta)
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+        for p in vlm.blocks:
+            xn = _rms_norm(x, p.ln1_g, v.norm_eps)
+            qh = _apply_rope(_mm_f32(xn, p.wq).view(b, tl, v.heads, dh), cos, sin)
+            kh = _apply_rope(_mm_f32(xn, p.wk).view(b, tl, v.n_kv, dh), cos, sin)
+            vh = _mm_f32(xn, p.wv).view(b, tl, v.n_kv, dh).to(dtype)
+            ks.append(kh.to(dtype))
+            vs.append(vh)
+            att = ring_attention_local(qh.transpose(1, 2), kh.repeat_interleave(groups, dim=2).transpose(1, 2),
+                                       vh.repeat_interleave(groups, dim=2).transpose(1, 2), mesh, causal=True)
+            x = x + tfm.linear(att.transpose(1, 2).reshape(b, tl, w), p.wo)
+            xn = _rms_norm(x, p.ln2_g, v.norm_eps)
+            x = x + tfm.linear((F.silu(_mm_f32(xn, p.w_gate)) * _mm_f32(xn, p.w_up)).to(dtype), p.w_down)
+    else:
+        x = comm.block(emb + vlm.pos[:tp], mesh, "data", dim=1)
+        for p in vlm.blocks:
+            qkv = tfm.linear(tfm.layer_norm(x, p.ln1_g, p.ln1_b), p.wqkv, p.bqkv)
+            qh, kh, vh = (z.reshape(b, tl, v.heads, dh) for z in qkv.split(w, dim=-1))
+            ks.append(kh)
+            vs.append(vh)
+            att = ring_attention_local(qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2), mesh, causal=True)
+            x = x + tfm.linear(att.transpose(1, 2).reshape(b, tl, w), p.wo, p.bo)
+            x = x + tfm.mlp(tfm.layer_norm(x, p.ln2_g, p.ln2_b), p.w1, p.b1, p.w2, p.b2)
+    # the last valid position's row from the rank that holds it (the others
+    # add zeros, so the sum is exact)
+    pos = valid_len - 1 - me * tl
+    mine = (pos >= 0) & (pos < tl)
+    last = x[torch.arange(b, device=x.device), pos.clamp(0, tl - 1)]
+    last = comm.all_reduce(torch.where(mine[:, None], last, torch.zeros((), dtype=dtype, device=x.device)),
+                           mesh, "data")
+    if v.arch == "llama":
+        last, head = _rms_norm(last, vlm.ln_f_g, v.norm_eps), vlm.lm_head
+    else:
+        last, head = tfm.layer_norm(last, vlm.ln_f_g, vlm.ln_f_b), vlm.tok_emb
+    cache = init_cache(v, b, dtype, vlm.device)
+    cache.k[:, :, :tp] = comm.all_gather(torch.stack(ks), mesh, "data", dim=2)
+    cache.v[:, :, :tp] = comm.all_gather(torch.stack(vs), mesh, "data", dim=2)
+    cache.length.copy_(valid_len)
+    return _mm_f32(last, head.t()), cache
 
 
 def _prefill_llama(vlm: VLM, embeddings: torch.Tensor, cache: KVCache, runs) -> torch.Tensor:

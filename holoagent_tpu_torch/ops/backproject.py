@@ -38,3 +38,26 @@ def backproject(
     pts_w = torch.where(valid[:, None], pts_w, torch.zeros_like(pts_w))
     colors = torch.where(valid[:, None], rgb.reshape(-1, 3), torch.zeros_like(pts_w))
     return pts_w, colors, valid
+
+
+def backproject_batch(
+    depth: torch.Tensor,  # (B, H, W)
+    rgb: torch.Tensor,  # (B, H, W, 3)
+    cam: Pinhole,
+    pose_c2w: torch.Tensor,  # (B, 4, 4)
+    depth_min: float = 1e-3,
+    depth_max: float = 10.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``backproject`` over a batch of frames sharing one camera (the
+    reference vmaps it): (B, H*W, 3) points and colors, (B, H*W) valid."""
+    outs = [backproject(d, c, cam, p, depth_min, depth_max) for d, c, p in zip(depth, rgb, pose_c2w)]
+    return tuple(torch.stack(z) for z in zip(*outs))
+
+
+def mean_depth_gate(depth: torch.Tensor, valid: torch.Tensor, filter_distance: float) -> torch.Tensor:
+    """Frame rejection gate: a mean valid depth beyond ``filter_distance``
+    drops the frame (reference generic.py:125-127 returns an empty cloud).
+    Returns a 0-dim bool 'keep'."""
+    s = torch.where(valid, depth.reshape(-1), torch.zeros((), device=depth.device)).sum()
+    n = torch.clamp(valid.to(torch.float32).sum(), min=1.0)
+    return (s / n) <= filter_distance

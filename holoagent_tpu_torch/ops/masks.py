@@ -1,5 +1,5 @@
 """Fixed-capacity mask-set ops (counterpart of holoagent_tpu/ops/masks.py):
-stability scores, boxes, greedy NMS, the disjoint carve."""
+stability scores, boxes, greedy NMS, the disjoint carve, containment."""
 
 from __future__ import annotations
 
@@ -88,3 +88,36 @@ def to_disjoint(masks: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     lane = torch.arange(m, device=masks.device)[:, None]
     out = flat & owned[None, :] & (lane == owner[None, :])
     return out.reshape(masks.shape)
+
+
+def _pair_overlaps(masks: torch.Tensor):
+    """(M, H, W) bool -> (float (M, P) masks, (M, M) intersections, (M,)
+    areas clamped at 1)."""
+    mf = masks.reshape(masks.shape[0], -1).to(torch.float32)
+    return mf, mf @ mf.T, torch.clamp(mf.sum(-1), min=1.0)
+
+
+def subtract_contained(masks: torch.Tensor, valid: torch.Tensor, thresh: float = 0.9) -> torch.Tensor:
+    """Carve contained masks out of their containers (reference
+    sam_utils.py:10-33 ``filter_masks``): when mask i holds over `thresh`
+    of a smaller valid mask j, j's pixels leave i, in one shot over all
+    pairs.  Returns the carved (M, H, W) masks."""
+    m = masks.shape[0]
+    mf, inter, area = _pair_overlaps(masks)
+    child = inter / area[None, :]  # child[i, j] = |i ∩ j| / |j|
+    smaller = area[None, :] < area[:, None]
+    eye = torch.eye(m, dtype=torch.bool, device=masks.device)
+    is_child = (child > thresh) & smaller & ~eye & valid[None, :] & valid[:, None]
+    carve = (is_child.to(torch.float32) @ mf) > 0.5
+    return (masks.reshape(m, -1) & ~carve).reshape(masks.shape)
+
+
+def containment_filter(masks: torch.Tensor, valid: torch.Tensor, thresh: float = 0.9) -> torch.Tensor:
+    """Keep mask (M,): drop a mask whose intersection with a bigger valid
+    mask is over `thresh` of its own area (reference sam_utils.py:10-33)."""
+    _, inter, area = _pair_overlaps(masks)
+    contain = inter / area[:, None]  # contain[i, j] = |i ∩ j| / |i|
+    bigger = area[None, :] > area[:, None]
+    eaten = (contain > thresh) & bigger & valid[None, :]
+    eye = torch.eye(masks.shape[0], dtype=torch.bool, device=masks.device)
+    return valid & ~(eaten & ~eye).any(dim=1)

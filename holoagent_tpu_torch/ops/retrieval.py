@@ -2,7 +2,7 @@
 of holoagent_tpu/ops/retrieval.py), on the gallery's device.
 
 Top-k keeps ``jax.lax.top_k``'s order: descending, ties to the lower index.
-``topk_cosine_sharded`` waits for the multi-device slice (ROADMAP.md).
+``topk_cosine_sharded`` splits the gallery over a mesh's data axis.
 """
 
 from __future__ import annotations
@@ -10,6 +10,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from ..parallel import comm
 
 
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -26,6 +28,26 @@ def topk_cosine(
     """(scores (Q, k), indices (Q, k)); invalid gallery rows score -inf."""
     scores = queries.float() @ gallery.float().T
     return _top_k(torch.where(gallery_valid[None, :], scores, float("-inf")), k)
+
+
+def topk_cosine_sharded(
+    gallery: torch.Tensor,  # (N, D), the same on every rank; N divisible by the data axis
+    gallery_valid: torch.Tensor,  # (N,)
+    queries: torch.Tensor,  # (Q, D)
+    k: int,
+    mesh,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``topk_cosine`` with the gallery split over the mesh's "data" axis:
+    each rank takes the top-k of its contiguous block (global indices), the
+    k candidates of every block are all-gathered (k * W a query, in block
+    order) and the final top-k is taken over them, so ties still go to the
+    lower index.  Every rank returns (scores (Q, k), indices (Q, k))."""
+    ls, li = topk_cosine(comm.block(gallery, mesh, "data"), comm.block(gallery_valid, mesh, "data"), queries, k)
+    li = li + comm.index(mesh, "data") * (gallery.shape[0] // comm.size(mesh, "data"))
+    all_s = comm.all_gather(ls.contiguous(), mesh, "data", dim=1)  # (Q, k * W)
+    all_i = comm.all_gather(li.contiguous(), mesh, "data", dim=1)
+    gs, gpos = _top_k(all_s, k)
+    return gs, torch.gather(all_i, 1, gpos)
 
 
 def class_filtered_topk(

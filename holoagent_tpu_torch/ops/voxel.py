@@ -146,6 +146,12 @@ def lookup(sorted_keys: torch.Tensor, query_keys: torch.Tensor) -> torch.Tensor:
     return torch.where(hit, pos, torch.full_like(pos, -1))
 
 
+def intersect_count(sorted_a: torch.Tensor, sorted_b: torch.Tensor) -> torch.Tensor:
+    """|A ∩ B| for two sorted unique key arrays (SENTINEL padded), 0-dim
+    int32."""
+    return (lookup(sorted_b, sorted_a) >= 0).sum().to(torch.int32)
+
+
 # (27, 3) cell offsets of the neighbourhood; row 13 is (0, 0, 0)
 _NEIGHBOR_OFFSETS = np.array(
     [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)], dtype=np.int32

@@ -19,6 +19,7 @@ from ..models import sam as sam_mod
 from ..ops import masks as mask_ops
 from ..ops.crop_resize import crop_and_resize, expand_boxes
 from ..ops.resize import resize
+from ..parallel import comm
 from ..utils.timing import StageTimer, stage
 
 
@@ -244,3 +245,33 @@ def extract_frames_batched(
         f_masks=torch.stack([x[0] for x in fused]),
         f_global=torch.stack([x[1] for x in fused]),
     )
+
+
+def extract_frames_dp(
+    clip: clip_mod.CLIPVisual,
+    sam: sam_mod.SAM,
+    images01: torch.Tensor,  # (F, H, W, 3), the same on every rank; F divisible by the data axis
+    mesh,
+    points_per_side: int = 12,
+    pred_iou_thresh: float = 0.88,
+    stability_thresh: float = 0.95,
+    min_area: float = 100.0,
+    max_masks: int = 64,
+    masked_weight: float = 0.4418,
+    bbox_margin: float = 50.0,
+    impl: str = "xla",
+    clip_impl: str = "xla",
+    timer: Optional[StageTimer] = None,
+) -> FrameFeatures:
+    """Data-parallel extraction: the frames split over the mesh's data axis
+    in contiguous blocks (the reference's ``P("data")``), each rank extracts
+    its block with ``extract_frames_batched`` (untiered, as the reference's
+    ``_extract_batch``), and the batched FrameFeatures are all-gathered, so
+    every rank returns all F frames' (leading frame axis)."""
+    ff = extract_frames_batched(
+        clip, sam, comm.block(images01, mesh, "data"), points_per_side=points_per_side,
+        pred_iou_thresh=pred_iou_thresh, stability_thresh=stability_thresh, min_area=min_area,
+        max_masks=max_masks, masked_weight=masked_weight, bbox_margin=bbox_margin, impl=impl,
+        clip_impl=clip_impl, timer=timer,
+    )
+    return FrameFeatures(*(comm.all_gather(a, mesh, "data") for a in ff))

@@ -97,7 +97,10 @@ class ContinuousBatcher:
         visual: clip_mod.CLIPVisual,
         tokenizer: Optional[SimpleTokenizer] = None,
         max_batch: int = 8,
-        mesh=None,  # sequence-parallel prefill: not ported
+        mesh=None,  # sequence-parallel prefill over the mesh's data axis for
+        # prompts of sp_threshold tokens or more (vlm.prefill_sp); decode
+        # runs unchanged on every rank over the replicated cache
+        sp_threshold: int = 512,
         chunk: int = 8,  # decode steps per dispatch (vlm.decode_chunk_tracked);
         # admission granularity becomes `chunk` tokens — 1 restores the
         # classic per-token loop
@@ -106,9 +109,6 @@ class ContinuousBatcher:
         # chunk k+1 is queued before chunk k's tokens are read.  1 = read every
         # chunk before queuing the next (the classic loop).
     ):
-        if mesh is not None:
-            raise NotImplementedError("sequence-parallel prefill over a mesh needs prefill_sp, which is not "
-                                      "ported yet (ROADMAP.md item 9)")
         if visual.variant.name != vlm.variant.clip_variant:
             raise ValueError(f"visual tower {visual.variant.name} != the VLM's clip_variant "
                              f"{vlm.variant.clip_variant}")
@@ -120,6 +120,8 @@ class ContinuousBatcher:
         self.device = vlm.device
         self.tok = tokenizer or SimpleTokenizer()
         self.max_batch = max_batch
+        self.mesh = mesh
+        self.sp_threshold = sp_threshold
         self.chunk = max(1, int(chunk))
         self.pipeline_depth = max(1, int(pipeline_depth))
         self.cache = vlm_mod.init_cache(self.v, max_batch, vlm.dtype, self.device)
@@ -206,17 +208,33 @@ class ContinuousBatcher:
         t = min(t, self.v.max_seq - 1)
         ns = np.minimum(ns, t)
 
-        if wave_imgs:
-            zero = torch.zeros((t, self.v.width), dtype=self.vlm.dtype, device=self.device)
-            emb = torch.stack([self._row_emb(i, t, ns, wave_ids, wave_imgs) if admit[i] else zero
-                               for i in range(b)])
-        else:
-            ids_pad = np.zeros((b, t), np.int64)
-            for i, ids in wave_ids.items():
-                ids_pad[i, : ns[i]] = ids[: ns[i]]
-            emb = vlm_mod.text_prompt_embeddings(self.vlm, upload(ids_pad, self.device),
-                                                 upload(ns, self.device))
-        self.current, self.cache = vlm_mod.admit_wave(self.vlm, emb, ns, admit, self.cache, self.current)
+        # long prompts prefill sequence-parallel one by one when a mesh is
+        # attached; they leave the batched wave
+        for i, _ in wave:
+            if self.mesh is None or ns[i] < self.sp_threshold:
+                continue
+            n = int(ns[i])
+            logits, sub = vlm_mod.prefill_sp(self.vlm, self._row_emb(i, t, ns, wave_ids, wave_imgs)[None],
+                                             np.asarray([n]), self.mesh)
+            self.cache.k[:, i] = sub.k[:, 0]
+            self.cache.v[:, i] = sub.v[:, 0]
+            self.cache.length[i] = n
+            self.current[i] = torch.argmax(logits[0])
+            admit[i] = False
+
+        if admit.any():
+            if wave_imgs:
+                zero = torch.zeros((t, self.v.width), dtype=self.vlm.dtype, device=self.device)
+                emb = torch.stack([self._row_emb(i, t, ns, wave_ids, wave_imgs) if admit[i] else zero
+                                   for i in range(b)])
+            else:
+                ids_pad = np.zeros((b, t), np.int64)
+                for i, ids in wave_ids.items():
+                    if admit[i]:
+                        ids_pad[i, : ns[i]] = ids[: ns[i]]
+                emb = vlm_mod.text_prompt_embeddings(self.vlm, upload(ids_pad, self.device),
+                                                     upload(np.where(admit, ns, 0), self.device))
+            self.current, self.cache = vlm_mod.admit_wave(self.vlm, emb, ns, admit, self.cache, self.current)
 
         (first,) = _wait(_to_host(self.current))  # one read a wave
         idxs, acts, rems = [], [], []

@@ -11,8 +11,18 @@ training does: the CUDA kernels have no backward.  ``logit_scale`` is a
 trainable scalar the trainer owns (``CLIPParams``), clipped at log 100 in
 the loss.
 
-Single device only: ``mesh`` (the reference's DP+TP sharding) raises until
-the multi-device slice.
+``make_train_step(mesh=...)`` is the reference's DP+TP step made explicit
+on a (data, model) mesh (the reference gets it from placements alone):
+each data rank takes its block of the batch and the features are
+all-gathered with autograd, so the logits span the global batch; the
+towers' blocks run tensor-parallel over "model" (``transformer.block_tp``:
+whole heads of q, k and v, the MLP's hidden columns).  The towers'
+gradients are summed over "data" (the gather's backward leaves each rank
+its own rows' share), the split leaves' also over "model"; ``logit_scale``'s
+is already whole on every rank, which computes the whole loss.  Every rank
+then takes the same optimizer step on its replicated master weights with
+the single-device step's gradients, so loss and new weights equal the
+single-device step's for any optimizer.
 """
 
 from __future__ import annotations
@@ -24,9 +34,11 @@ from typing import Iterator, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.distributed.tensor import Shard
 
 from ..models import clip as clip_mod
 from ..models import transformer as tfm
+from ..parallel import comm, sharding
 
 LOGIT_SCALE_MAX = math.log(100.0)
 MASKED_WEIGHT = 0.4418  # pipeline.clip_masked_weight, the reference's operating point
@@ -110,16 +122,50 @@ def _checked(variant: clip_mod.CLIPVariant, params: CLIPParams) -> None:
 def make_train_step(variant: clip_mod.CLIPVariant, tx: torch.optim.Optimizer, mesh=None,
                     dtype: torch.dtype = torch.bfloat16):
     """The (params, images, tokens) -> loss step: one AdamW update in place.
-    The loss comes back as a 0-dim tensor (no host sync)."""
+    The loss comes back as a 0-dim tensor (no host sync).  With a `mesh`
+    (module docstring) every rank passes the same params and the whole
+    batch, and gets the same loss and the same updated params."""
     if mesh is not None:
-        raise NotImplementedError("make_train_step(mesh=...): DP+TP training is not ported (ROADMAP.md, "
-                                  "multi-device)")
+        return _mesh_train_step(variant, tx, mesh, dtype)
 
     def step(params: CLIPParams, images: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         _checked(variant, params)
         tx.zero_grad(set_to_none=True)
         loss = clip_loss(params, images, tokens, dtype=dtype)
         loss.backward()
+        tx.step()
+        return loss.detach()
+
+    return step
+
+
+def _sum_grads(params, mesh, axis: str) -> None:
+    """All-reduce the gradients over `axis` in one flat buffer."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    flat = comm.all_reduce(torch.cat([g.reshape(-1) for g in grads]), mesh, axis)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def _mesh_train_step(variant: clip_mod.CLIPVariant, tx: torch.optim.Optimizer, mesh, dtype: torch.dtype):
+    tp = (mesh, "model") if comm.size(mesh, "model") > 1 else None
+
+    def step(params: CLIPParams, images: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        _checked(variant, params)
+        tx.zero_grad(set_to_none=True)
+        imgs, toks = comm.block(images, mesh, "data"), comm.block(tokens, mesh, "data")
+        img = clip_mod.forward_image(params.visual, imgs, impl="xla", dtype=dtype, remat=True, tp=tp)
+        txt = clip_mod.forward_text(params.text, toks, impl="xla", dtype=dtype, tp=tp)
+        loss = _info_nce(comm.gather_batch(img, mesh, "data"), comm.gather_batch(txt, mesh, "data"),
+                         params.logit_scale)
+        loss.backward()
+        named = sharding.named_parameters(params)
+        _sum_grads([q for n, q in named.items() if n != "logit_scale"], mesh, "data")
+        if tp is not None:  # the leaves the model axis splits (block_tp) hold a slice's gradient each
+            rule = sharding.clip_param_sharding(params, mesh)
+            _sum_grads([q for n, q in named.items() if any(isinstance(pl, Shard) for pl in rule[n])], mesh, "model")
         tx.step()
         return loss.detach()
 

@@ -211,6 +211,52 @@ def test_mask_ops(rng):
     )
 
 
+@pytest.mark.parametrize("thresh", [0.9, 0.5])
+def test_containment_ops(rng, thresh):
+    """subtract_contained and containment_filter (ops/masks.py), with nested
+    blobs so that containment happens."""
+    masks = _blob_masks(rng)
+    masks[1] = masks[0] | masks[1]  # 0 inside 1
+    masks[2] = masks[2] & masks[3]  # 2 inside 3
+    valid = np.ones(masks.shape[0], bool)
+    valid[5] = False
+    mj, mt, vj, vt = jnp.asarray(masks), T(masks), jnp.asarray(valid), T(valid)
+    carved = tmasks.subtract_contained(mt, vt, thresh).numpy()
+    np.testing.assert_array_equal(carved, _np(jmasks.subtract_contained(mj, vj, thresh)))
+    assert (carved != masks).any()
+    keep = tmasks.containment_filter(mt, vt, thresh).numpy()
+    np.testing.assert_array_equal(keep, _np(jmasks.containment_filter(mj, vj, thresh)))
+    assert not keep.all()
+
+
+def test_backproject_batch_and_depth_gate(rng):
+    from holoagent_tpu.ops.backproject import backproject_batch as jbatch, mean_depth_gate as jgate
+    from holoagent_tpu_torch.ops.backproject import backproject_batch as tbatch, mean_depth_gate as tgate
+
+    depth = rng.uniform(0.2, 6.0, (3, 48, 64)).astype(np.float32)
+    depth[:, :5] = 0.0
+    rgb = rng.uniform(0, 1, (3, 48, 64, 3)).astype(np.float32)
+    poses = np.stack([np.eye(4, dtype=np.float32)] * 3)
+    poses[:, :3, 3] = rng.normal(size=(3, 3))
+    cj, ct = jcamera.Pinhole.from_matrix(K), tcamera.Pinhole.from_matrix(K)
+    want = jbatch(jnp.asarray(depth), jnp.asarray(rgb), cj, jnp.asarray(poses), 1e-3, 5.0)
+    got = tbatch(T(depth), T(rgb), ct, T(poses), 1e-3, 5.0)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), _np(b), atol=1e-5)
+    np.testing.assert_array_equal(got[2].numpy(), _np(want[2]))
+    for i in range(3):
+        for dist in (2.0, 3.1, 4.0):
+            assert bool(tgate(T(depth[i]), got[2][i], dist)) == bool(jgate(jnp.asarray(depth[i]), want[2][i], dist))
+
+
+def test_intersect_count(rng):
+    a = np.unique(rng.integers(0, 500, 200)).astype(np.int32)
+    b = np.unique(rng.integers(0, 500, 150)).astype(np.int32)
+    pad = lambda x: np.concatenate([x, np.full(256 - len(x), tvoxel.SENTINEL, np.int32)])  # noqa: E731
+    got = tvoxel.intersect_count(T(pad(a)), T(pad(b)))
+    assert int(got) == int(jvoxel.intersect_count(jnp.asarray(pad(a)), jnp.asarray(pad(b)))) == len(np.intersect1d(a, b))
+
+
 def test_crop_and_resize(rng):
     img = rng.uniform(0, 1, (40, 56, 3)).astype(np.float32)
     masks = _blob_masks(rng)

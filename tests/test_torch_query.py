@@ -227,8 +227,17 @@ def test_build_map_run_then_query(tmp_path):
     for q in INSTRUCTIONS[:4]:
         floor, rooms, objs, res = eng.query_hierarchy(q)
         assert "FastMatching" in res and np.isfinite(res["Total_Time"])
-    with pytest.raises(NotImplementedError, match="ShardedMapper"):
-        build_map.run(from_dict({**TINY, "pipeline": {"sharded_mapping": "on"}}), models=models, device="cpu")
+    # sharded_mapping on: the ShardedMapper on a one-rank process group in
+    # this process (the reference's one-device mesh); at one shard its
+    # scene holds the single-device Mapper's voxels
+    on = {**TINY, "main": {"save_path": str(tmp_path / "on"), "scene_id": "s"},
+          "pipeline": {**TINY["pipeline"], "sharded_mapping": "on"}}
+    sharded_dir, sg = build_map.run(from_dict(on), dataset=SyntheticDataset(num_frames=12, hw=(48, 64)),
+                                    models=models, device="cpu")
+    sstats = json.loads((tmp_path / "on" / "s" / "build_stats.json").read_text())
+    assert (sstats["frames"], sstats["scene_points"]) == (stats["frames"], stats["scene_points"])
+    assert sharded_dir.parent == tmp_path / "on" / "s" and len(sg.views) >= 6 and sg.rooms
+    assert [(r.room_id, r.name) for r in HMSGraph.load(sharded_dir).rooms] == [(r.room_id, r.name) for r in sg.rooms]
 
 
 def test_build_map_main_with_a_json_config(tmp_path):

@@ -32,6 +32,7 @@ from holoagent_tpu_torch.dataloader import SyntheticDataset
 from holoagent_tpu_torch.memory import hmsg, nodes
 from holoagent_tpu_torch.models import clip as tclip
 from holoagent_tpu_torch.models import vlm
+from holoagent_tpu_torch.parallel import make_mesh
 from holoagent_tpu_torch.query import GenerativeVLM
 from holoagent_tpu_torch.serving import ContinuousBatcher, GenRequest
 
@@ -111,9 +112,13 @@ def test_batcher_queue_longer_than_the_slots(weights):
 
 
 def test_batcher_refuses_a_mesh(weights):
+    """Named for the gap it held until the batcher took a mesh: on a
+    one-rank mesh (this process), prompts of sp_threshold tokens or more
+    prefill through prefill_sp and the strings are the reference's."""
+    jb, _ = _pair(weights)
     _, _, m, visual = weights["test-tiny"]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ContinuousBatcher(m, visual, mesh=object())
+    b = ContinuousBatcher(m, visual, max_batch=2, mesh=make_mesh(device="cpu"), sp_threshold=4)
+    assert _serve(b, GenRequest, CALLS) == _serve(jb, JRequest, CALLS)
 
 
 def test_generative_vlm_against_the_reference(weights):

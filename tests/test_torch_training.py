@@ -28,6 +28,7 @@ from holoagent_tpu_torch.models import transformer as tfm
 from holoagent_tpu_torch.models import vlm as tvlm
 from holoagent_tpu_torch.ops import flash_attention as tfa
 from holoagent_tpu_torch.ops import quant_matmul as tqm
+from holoagent_tpu_torch.parallel import make_mesh
 from holoagent_tpu_torch.query import OracleVLM, tag_image
 from holoagent_tpu_torch.training import contrastive as tcon
 from holoagent_tpu_torch.training import distill as tdistill
@@ -157,8 +158,15 @@ def test_train_step_matches_optax(clip_init, blend):
         assert np.abs(a - got[k]).max() <= 2e-3 + STEP_TOL, k  # lr * (1 + wd * |p|) bounds the rest
     moved = np.abs(got["visual.blocks.wqkv"] - tree["visual"]["blocks"]["wqkv"]).max()
     assert moved > 1e-4  # the step did move the weights
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tcon.make_train_step(tclip.VARIANTS[CV], ttx, mesh=object())
+    # the step on a one-rank (1, 1) mesh in this process (DP and TP of
+    # width 1, the collectives one-rank calls) is the single-device step
+    pm, ps = _port_clip(tree), _port_clip(tree)
+    ml = tcon.make_train_step(tclip.VARIANTS[CV], tcon.init_train_state(pm, lr=1e-3), mesh=make_mesh(device="cpu"),
+                              dtype=torch.float32)(pm, timgs, ttoks)
+    sl = tcon.make_train_step(tclip.VARIANTS[CV], tcon.init_train_state(ps, lr=1e-3), dtype=torch.float32)(
+        ps, timgs, ttoks)
+    assert ml.item() == sl.item()
+    _close_trees(_params(ps), _params(pm), 0.0, relative=False)
 
 
 def test_remat_gives_equal_gradients(clip_init):
