@@ -236,6 +236,17 @@ class NavConfig:
     v_max: float = 0.42   # g1.yaml max_vel_x
     w_max: float = 0.35   # g1.yaml max_vel_theta
 
+    def make(self, costmap):
+        """Instantiate the configured controller against a costmap."""
+        from .nav import make_controller
+
+        kw: Dict[str, Any] = dict(v_max=self.v_max, w_max=self.w_max)
+        if self.controller in ("dwb", "dwa"):
+            kw["critics"] = tuple(self.critics)
+            if self.critic_params:
+                kw["critic_params"] = dict(self.critic_params)
+        return make_controller(self.controller, costmap, **kw)
+
 
 @dataclass
 class Config:
@@ -313,3 +324,7 @@ def apply_override(cfg: Config, override: str) -> Config:
     for p in reversed(parts[:-1]):
         nested = {p: nested}
     return from_dict(nested, base=cfg)
+
+
+def to_dict(cfg: Any) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)

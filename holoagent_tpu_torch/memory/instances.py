@@ -75,6 +75,10 @@ class InstanceSet(NamedTuple):
     ccount: torch.Tensor  # (I,) int32
     dsig: torch.Tensor  # (I, SIG_BUCKETS) f32 0/1 dilated signature
 
+    @property
+    def capacity(self) -> Tuple[int, int]:
+        return tuple(self.rows.shape)
+
     def feats(self, normalize: bool = True) -> torch.Tensor:
         f = self.feat_sum / torch.clamp(self.weight, min=1e-9)[:, None]
         if normalize:

@@ -11,8 +11,10 @@ instance state stay on the device.  With ``extract_frames_per_dispatch`` >
 one SAM encoder pass and one CLIP encode a group) and integrates them one
 by one in frame order.
 
-The reference's fused single-program frame step (``fused_frame_step``)
-gives the same results as its staged path, which is the one the port runs.
+The reference's fused frame step (``fused_frame_step`` with the
+sequential fold: one XLA program a frame, untiered extraction) gives the
+same results as its staged path; here the staged path runs with the
+extraction untiered.
 """
 
 from __future__ import annotations
@@ -150,7 +152,10 @@ class Mapper:
         if ff is None:
             if self.clip is None or self.sam is None:
                 raise ValueError("a Mapper without towers needs the frame's FrameFeatures (ff)")
-            extract_fn = extract_frame_features_tiered if p.extract_tiering else extract_frame_features
+            # the reference's fused step (sequential fold) extracts untiered
+            fused = p.fused_frame_step and p.merge_type not in ("hierarchical", "paired")
+            tiered = p.extract_tiering and not fused
+            extract_fn = extract_frame_features_tiered if tiered else extract_frame_features
             ff = extract_fn(self.clip, self.sam, rgb, **self._extract_kw())
         masks_flat = ff.masks.reshape(ff.masks.shape[0], -1)
         with stage(t, "fuse"):

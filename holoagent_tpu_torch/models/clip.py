@@ -70,6 +70,11 @@ VARIANTS = {
 }
 
 
+def clip_dim(name: str) -> int:
+    """Embedding dim lookup (reference utils/constants.py:3-7 CLIP_DIM)."""
+    return VARIANTS[name].embed_dim
+
+
 IMPLS = ("flash", "xla")
 
 
@@ -151,8 +156,7 @@ def _init_visual_(model: CLIPVisual, gen: torch.Generator) -> None:
     scale = variant.v_width**-0.5
     for p in (model.patch_w, model.cls, model.pos, model.proj):
         tfm._normal_(p, scale, gen)
-    for blk in model.blocks:
-        tfm.init_block_(blk, gen, variant.v_layers)
+    tfm.init_block_stack(model.blocks, gen)
 
 
 def init_clip_visual(
@@ -180,15 +184,14 @@ def init_clip(
     tfm._normal_(text.tok_emb, 0.02, gen)
     tfm._normal_(text.pos, 0.01, gen)
     tfm._normal_(text.proj, variant.t_width**-0.5, gen)
-    for blk in text.blocks:
-        tfm.init_block_(blk, gen, variant.t_layers)
+    tfm.init_block_stack(text.blocks, gen)
     return visual, text
 
 
 @torch.no_grad()
 def quantize_clip(tower, dtype: Optional[torch.dtype] = None):
     """Per-output-channel int8 quantization of a tower's blocks (W8A8,
-    ``transformer.quantize_block_``): a new ``CLIPVisual`` or ``CLIPText``
+    ``transformer.quantize_block_stack``): a new ``CLIPVisual`` or ``CLIPText``
     with ``blocks_q8`` in place of ``blocks`` and the same ``impl``.  The
     block norms and biases and everything outside the blocks stay float, in
     `dtype` (default: the tower's).  The scales are computed from the
@@ -199,8 +202,7 @@ def quantize_clip(tower, dtype: Optional[torch.dtype] = None):
     out = type(tower)(tower.variant, dtype=dtype or like.dtype, device=like.device, quant=True, impl=tower.impl)
     for name, p in tower.named_parameters(recurse=False):
         getattr(out, name).copy_(p)
-    for q, blk in zip(out.blocks_q8, tower.blocks):
-        tfm.quantize_block_(q, blk)
+    tfm.quantize_block_stack(out.blocks_q8, tower.blocks)
     return out
 
 

@@ -273,7 +273,7 @@ def _fourier_pe(coords01: torch.Tensor, gauss: torch.Tensor) -> torch.Tensor:
 
 def image_pe(prompt: PromptEncoder, g: int) -> torch.Tensor:
     """Dense positional encoding of the (g, g) embedding grid -> (g, g, D)."""
-    t = (torch.arange(g, dtype=torch.float32, device=prompt.gauss.device) + 0.5) / g
+    t = (torch.arange(g, dtype=prompt.gauss.dtype, device=prompt.gauss.device) + 0.5) / g
     gy, gx = torch.meshgrid(t, t, indexing="ij")
     return _fourier_pe(torch.stack([gx, gy], dim=-1), prompt.gauss)
 
@@ -471,36 +471,65 @@ def _init_lin(lin: Lin, gen: torch.Generator) -> None:
     _fill(lin.b, gen)
 
 
-def init_sam(v: SAMVariant, seed: int = 0, dtype=torch.float32, device: DeviceLike = None) -> SAM:
-    """Random SAM from a seeded torch.Generator, with the reference's
-    ``init_sam`` shapes and scales (values differ from JAX's)."""
-    gen = generator(seed)
-    m = SAM(v, dtype=dtype, device=device)
+def _init_norms(m: nn.Module, gen: torch.Generator) -> None:
+    """Norm gains 1, biases 0."""
     for name, p in m.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf.endswith("_g"):
             _fill(p, gen, value=1.0)
         elif leaf.endswith("_b") or leaf in ("b", "patch_b"):
             _fill(p, gen)
-    enc, dec, pr = m.encoder, m.decoder, m.prompt
+
+
+def init_encoder(enc: ImageEncoder, gen: torch.Generator) -> ImageEncoder:
+    """The image encoder's random init in place, at the reference's
+    ``init_encoder`` scales, from `gen`."""
+    width, out_chans = enc.patch_w.shape[1], enc.neck_conv2.shape[-1]
+    _init_norms(enc, gen)
     for blk in enc.blocks:
         for lin in (blk.qkv, blk.proj, blk.lin1, blk.lin2):
             _init_lin(lin, gen)
         _fill(blk.rel_h, gen, std=0.02)
         _fill(blk.rel_w, gen, std=0.02)
-    _fill(enc.patch_w, gen, std=v.width**-0.5)
+    _fill(enc.patch_w, gen, std=width**-0.5)
     _fill(enc.pos, gen, std=0.02)
-    _fill(enc.neck_conv1, gen, std=v.width**-0.5)
-    _fill(enc.neck_conv2, gen, std=(9 * v.out_chans) ** -0.5)
+    _fill(enc.neck_conv1, gen, std=width**-0.5)
+    _fill(enc.neck_conv2, gen, std=(9 * out_chans) ** -0.5)
+    return enc
+
+
+def init_prompt_encoder(pr: PromptEncoder, gen: torch.Generator) -> PromptEncoder:
+    """The prompt encoder's random init in place (``init_prompt_encoder``'s
+    scales): the Fourier matrix at std 1, the point embeddings at 0.02."""
     _fill(pr.gauss, gen, std=1.0)
-    for p in (pr.point_pos, pr.point_neg, pr.not_a_point, pr.no_mask, dec.iou_token, dec.mask_tokens):
+    for p in (pr.point_pos, pr.point_neg, pr.not_a_point, pr.no_mask):
+        _fill(p, gen, std=0.02)
+    return pr
+
+
+def init_decoder(dec: MaskDecoder, gen: torch.Generator) -> MaskDecoder:
+    """The mask decoder's random init in place (``init_decoder``'s scales)."""
+    _init_norms(dec, gen)
+    for p in (dec.iou_token, dec.mask_tokens):
         _fill(p, gen, std=0.02)
     for mod in dec.modules():
         if isinstance(mod, Lin):
             _init_lin(mod, gen)
-    d = v.decoder_dim
+    d = dec.up1_w.shape[2]
     _fill(dec.up1_w, gen, std=d**-0.5)
     _fill(dec.up2_w, gen, std=(d // 4) ** -0.5)
+    return dec
+
+
+def init_sam(v: SAMVariant, seed: int = 0, dtype=torch.float32, device: DeviceLike = None) -> SAM:
+    """Random SAM from a seeded torch.Generator, with the reference's
+    ``init_sam`` shapes and scales (values differ from JAX's): the encoder,
+    the prompt encoder, then the decoder, from one generator."""
+    gen = generator(seed)
+    m = SAM(v, dtype=dtype, device=device)
+    init_encoder(m.encoder, gen)
+    init_prompt_encoder(m.prompt, gen)
+    init_decoder(m.decoder, gen)
     return m
 
 

@@ -137,15 +137,17 @@ def _normal_(p: torch.Tensor, std: float, gen: torch.Generator) -> None:
         p.copy_(torch.randn(p.shape, generator=gen, dtype=torch.float32) * std)
 
 
-def init_block_(blk: Block, gen: torch.Generator, layers: int) -> None:
-    """Random matmul weights with the reference's ``init_block_stack``
-    scales for a stack of `layers` blocks (norms and biases stay 1 / 0)."""
-    width = blk.wo.shape[0]
-    proj_std = (width**-0.5) * ((2 * layers) ** -0.5)
-    _normal_(blk.wqkv, width**-0.5, gen)
-    _normal_(blk.wo, proj_std, gen)
-    _normal_(blk.w1, (2 * width) ** -0.5, gen)
-    _normal_(blk.w2, proj_std, gen)
+def init_block_stack(blocks: Sequence[Block], gen: torch.Generator) -> None:
+    """The reference's ``init_block_stack`` into a tower's stack, in place:
+    random matmul weights at its scales for ``len(blocks)`` layers, block
+    by block from `gen` (norms and biases stay 1 / 0)."""
+    proj_scale = (2 * len(blocks)) ** -0.5
+    for blk in blocks:
+        width = blk.wo.shape[0]
+        _normal_(blk.wqkv, width**-0.5, gen)
+        _normal_(blk.wo, width**-0.5 * proj_scale, gen)
+        _normal_(blk.w1, (2 * width) ** -0.5, gen)
+        _normal_(blk.w2, width**-0.5 * proj_scale, gen)
 
 
 def block(x, p: Block, num_heads: int, impl: str = "xla", causal: bool = False, tp=None):
@@ -258,8 +260,8 @@ Q8_WEIGHTS = ("wqkv", "wo", "w1", "w2")  # a block's quantized matmuls
 
 
 class QBlock(nn.Module):
-    """A block quantized by ``quantize_block_``, under the reference's
-    ``quantize_block_stack`` names (``wqkv_q8``, ``wqkv_s``, ...).  Int8
+    """A block quantized by ``quantize_block_stack``, under the reference's
+    names (``wqkv_q8``, ``wqkv_s``, ...).  Int8
     weights are (out, in), scales (1, out) float32; norms and biases keep
     the float block's dtype."""
 
@@ -282,15 +284,16 @@ class QBlock(nn.Module):
 
 
 @torch.no_grad()
-def quantize_block_(q: QBlock, blk: Block) -> None:
-    """``quantize_block_stack`` for one layer, into `q`: int8 weights and
-    scales; norms and biases copied as they are."""
-    for name in ("ln1_g", "ln1_b", "bqkv", "bo", "ln2_g", "ln2_b", "b1", "b2"):
-        getattr(q, name).copy_(getattr(blk, name))
-    for name in Q8_WEIGHTS:
-        w_q, w_s = quantize_weight_int8(getattr(blk, name))
-        getattr(q, f"{name}_q8").copy_(w_q.t())
-        getattr(q, f"{name}_s").copy_(w_s)
+def quantize_block_stack(qblocks: Sequence[QBlock], blocks: Sequence[Block]) -> None:
+    """The reference's ``quantize_block_stack`` into `qblocks`, block by
+    block: int8 weights and scales; norms and biases copied as they are."""
+    for q, blk in zip(qblocks, blocks, strict=True):
+        for name in ("ln1_g", "ln1_b", "bqkv", "bo", "ln2_g", "ln2_b", "b1", "b2"):
+            getattr(q, name).copy_(getattr(blk, name))
+        for name in Q8_WEIGHTS:
+            w_q, w_s = quantize_weight_int8(getattr(blk, name))
+            getattr(q, f"{name}_q8").copy_(w_q.t())
+            getattr(q, f"{name}_s").copy_(w_s)
 
 
 def attention_q8(x: torch.Tensor, p: QBlock, num_heads: int, impl: str = "xla", qmm: str = "xla",

@@ -176,8 +176,7 @@ def init_vlm(v: VLMVariant, seed: int = 0, dtype=torch.float32, device: DeviceLi
         # no learned positions (RoPE): the image-block ramp stays zero
     else:
         tfm._normal_(model.pos, 0.01, gen)
-        for blk in model.blocks:
-            tfm.init_block_(blk, gen, v.layers)
+        tfm.init_block_stack(model.blocks, gen)
     tfm._normal_(model.proj_w, embed_dim**-0.5, gen)
     return model
 

@@ -282,8 +282,8 @@ def _sam_loss(sam: sam_mod.SAM, img: torch.Tensor, points01: torch.Tensor, gt16:
     # IoU regression against the achieved overlap of each token's binarization
     binm = logits > 0.0
     on = tgt > 0.5
-    bi = (binm & on).sum(dim=(-1, -2)).float()
-    bu = (binm | on).sum(dim=(-1, -2)).float()
+    bi = (binm & on).sum(dim=(-1, -2)).to(logits.dtype)
+    bu = (binm | on).sum(dim=(-1, -2)).to(logits.dtype)
     iou_t = (bi / torch.clamp(bu, min=1.0)).detach()
     iou_loss = ((iou_pred - iou_t) ** 2).mean()
     return mask_loss + iou_loss
@@ -307,6 +307,7 @@ def train_tiny_sam(
     rng = np.random.default_rng(seed)
     sam = params if params is not None else sam_mod.init_sam(v, seed=seed, dtype=torch.float32, device=dev)
     tfm.trainable(sam)
+    dtype = sam.dtype  # the inputs follow the model (float32; float64 for a precision study)
     tx = contrastive.adamw(sam.parameters(), lr, weight_decay=0.01)
     g4 = 4 * (v.img_size // v.patch)
 
@@ -341,11 +342,11 @@ def train_tiny_sam(
                 gt16 = _resize(m.astype(np.float32), (g4, g4)) > 0.5
                 entries.append((
                     np.stack([xs / w, ys / h], -1).astype(np.float32),
-                    torch.from_numpy(gt16.astype(np.float32)).to(dev),
+                    torch.from_numpy(gt16.astype(np.float32)).to(dev, dtype),
                 ))
             if entries:
                 x = sam_mod.preprocess(torch.from_numpy(np.asarray(frame.rgb, np.float32))[None], v.img_size)[0]
-                frames.append((x.to(dev), entries))
+                frames.append((x.to(dev, dtype), entries))
     losses = []
     for _ in range(steps):
         x, entries = frames[rng.integers(0, len(frames))]
@@ -354,5 +355,5 @@ def train_tiny_sam(
             coords, gt16 = entries[rng.integers(0, len(entries))]
             pts.append(coords[rng.integers(0, len(coords))])
             gts.append(gt16)
-        losses.append(step(x, torch.from_numpy(np.asarray(pts, np.float32)).to(dev), torch.stack(gts)))
+        losses.append(step(x, torch.from_numpy(np.asarray(pts, np.float32)).to(dev, dtype), torch.stack(gts)))
     return sam, torch.stack(losses).tolist() if losses else []

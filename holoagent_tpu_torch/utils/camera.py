@@ -11,6 +11,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..device import DeviceLike, resolve
+
 
 def _f32(x) -> float:
     return float(np.float32(x))
@@ -32,6 +34,16 @@ class Pinhole(NamedTuple):
     @staticmethod
     def make(fx: float, fy: float, cx: float, cy: float) -> "Pinhole":
         return Pinhole(_f32(fx), _f32(fy), _f32(cx), _f32(cy))
+
+    def matrix(self, device: DeviceLike = None) -> torch.Tensor:
+        """The 3x3 intrinsics matrix, float32, on `device` (the card unless "cpu")."""
+        return torch.tensor([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
+                            dtype=torch.float32, device=resolve(device))
+
+    def scaled(self, sx: float, sy: float) -> "Pinhole":
+        """Intrinsics after resizing the image by (sx, sy), each product in float32."""
+        x, y = np.float32(sx), np.float32(sy)
+        return Pinhole(*(float(np.float32(v) * s) for v, s in zip(self, (x, y, x, y))))
 
 
 def project(points_cam: torch.Tensor, cam: Pinhole) -> Tuple[torch.Tensor, torch.Tensor]:

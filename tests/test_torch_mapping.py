@@ -142,3 +142,16 @@ def test_mapper_rules(setup):
     bf16 = {**CFG, "models": {**CFG["models"], "clip": {"type": "test-tiny", "dtype": "bfloat16"}}}
     with pytest.raises(ValueError):
         Mapper(from_dict(bf16), clip_t, sam_t, device="cpu")
+
+
+def test_fused_frame_step_matches_reference(setup):
+    """``pipeline.fused_frame_step`` with the sequential fold: the JAX
+    Mapper runs its one-program ``frame_step`` (untiered extraction), the
+    port's Mapper its staged path untiered, each on its own towers (the
+    same weights, bridged)."""
+    clip_p, sam_p, clip_t, sam_t, ds, jds = setup
+    cfg = {**CFG, "pipeline": {**CFG["pipeline"], "merge_type": "sequential", "fused_frame_step": True}}
+    ms_j = JMapper(jfrom_dict(cfg), clip_p, sam_p).run(jds)
+    ms_t = Mapper(from_dict(cfg), clip_t, sam_t, device="cpu").run(ds)
+    assert int(ms_t.instances.num()) == int(ms_j.instances.num()) > 0
+    _compare(ms_t, ms_j, 2e-3)

@@ -198,6 +198,41 @@ def test_sam_loss_value_and_grads():
                  GRAD_TOL)
 
 
+def test_adamw_matches_optax_over_steps_and_zero_gradients():
+    """The trainers' optimizer (``contrastive.adamw``) against
+    ``optax.adamw`` at the SAM recipe's lr and decay, over 8 steps from the
+    same gradients: the bias corrections step by step (the schedule is
+    constant in both) and decay on every leaf, also where the gradient is
+    an exact zero tensor, as the SAM loss gives ``point_neg`` and the
+    hypernetworks of tokens no prompt picked (the port's backward leaves no
+    SAM gradient None: tests/test_torch_training.py's SAM loss test)."""
+    import optax
+
+    rng = np.random.default_rng(5)
+    shapes = {"a": (16, 8), "b": (32,), "zero": (4, 4)}
+    init = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    grads = []
+    for step in range(8):
+        g = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+        g["zero"][:] = 0
+        if 2 <= step <= 4:  # a leaf whose gradient falls to zero for three steps
+            g["b"][:] = 0
+        grads.append(g)
+    tx = optax.adamw(2e-3, weight_decay=0.01)
+    jp = jax.tree.map(jnp.asarray, init)
+    st = tx.init(jp)
+    params = {k: torch.nn.Parameter(torch.from_numpy(a.copy())) for k, a in init.items()}
+    opt = tcon.adamw(params.values(), 2e-3, weight_decay=0.01)
+    for g in grads:
+        upd, st = tx.update(jax.tree.map(jnp.asarray, g), st, jp)
+        jp = optax.apply_updates(jp, upd)
+        for k, p in params.items():
+            p.grad = torch.from_numpy(g[k].copy())
+        opt.step()
+        for k, p in params.items():  # a few float32 ulps: torch scales p by 1 - lr·wd, optax subtracts lr·wd·p
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[k]), rtol=4e-6, atol=1e-7, err_msg=k)
+
+
 @pytest.mark.parametrize("name", ["test-tiny", "test-tiny-llama"], ids=["gpt", "llama"])
 def test_distill_step_matches_reference(name):
     v = jvlm.VARIANTS[name]
