@@ -24,7 +24,12 @@ Phases (any failure exits non-zero, with no result line):
      K2's text case is the CLIP text tower's launch (256 prompts, 12 heads,
      77 tokens, causal, the resident route); its prefill case a vlm-base
      prefill layer (4 prompts, 16 heads, 1024 tokens, causal, the long
-     route);
+     route); its head-dim-80 cases CLIP ViT-H-14's crop stack (resident)
+     and a long one.  The general route's cases (float32 at head dims 16,
+     32 and 64, K1 at 32 on the reference's 16 x 16 and 32 x 32 grids, bf16
+     at head dims no tensor-core kernel is built for) are held within 2e-3
+     absolute plus 2e-3 relative in float32, each rejecting the same
+     mutants;
   4. towers: at full width, hold the SAM and CLIP encoders through the
      kernels against the same encoders through the plain versions, in bf16
      and as W8A8 towers (CLIP in both qmm modes), the CLIP ViT-L/14 text
@@ -143,10 +148,26 @@ Phases (any failure exits non-zero, with no result line):
      ContinuousBatcher with a mesh against one without; (x4)
      pipeline_apply and moe_apply against the sequential stack and the
      dense reference; (x5) make_train_step(mesh=...) at ViT-L/14, B = 32,
-     against the single-device step.  A [time] line after each phase says when it ended.  Per-stage ms, frames/s or ms/keyframe, peak memory; the kernels' launch
-     counts and their device time inside each run.  Every K1, K2 and K3
-     shape a path launched that no case of phase 3 held gets its own case
-     before the kernels line.
+     against the single-device step; (y) the configurations whose
+     attention the tensor-core kernels did not take, or that the card had
+     not run, each through its entry points: (y1) CLIP ViT-H-14 (visual head
+     dim 80) at the 3-room yaml's settings, its towers from load_models
+     held against the plain ones in bf16 and W8A8, Mapper.run + finalize in
+     both (K2 on the resident route at D = 80 only), build_map.run with the
+     fast queries, and query_bench --slow --vlm clip over that graph; (y2)
+     config/synthetic.yaml as it stands (float32 test-tiny towers: K2's
+     general route), build_map.run, HMSGraph.load and the fast queries held
+     to the port's CPU run of the same config, then its Mapper with the
+     kernel extraction (K1 and K2 on the general route) against the plain
+     extraction; (y3) CLIP ViT-B-32 and SAM vit_l, each in the Mapper; (y4)
+     apps.serving_bench.run at vlm-base as (h); (y5) the ScanNet and iPhone
+     layouts written by dataloader/export.py, read back through the port's
+     loaders into build_map.run.  A [time] line after each phase says when
+     it ended.  Per-stage ms, frames/s or ms/keyframe, peak memory; the
+     kernels' launch counts, by route for the attention kernels, and their
+     device time inside each run.  Every K1, K2 and K3 shape a path launched
+     that no case of phase 3 held gets its own case before the kernels
+     line.
 Prints one JSON line of kernels, then the nvidia-smi line, then as the last
 line {"ok": true, "device": {...}}.
 """
@@ -185,10 +206,13 @@ from holoagent_tpu_torch.apps import correctness_suite, lio_bench, visualize_gra
 from holoagent_tpu_torch.apps.common import load_dataset, load_models, tokenizer  # noqa: E402
 from holoagent_tpu_torch.config import MeshConfig, from_dict  # noqa: E402
 from holoagent_tpu_torch.dataloader import RGBDFrame, SyntheticDataset, SyntheticScene  # noqa: E402
-from holoagent_tpu_torch.dataloader.export import hm3dsem_k, write_hm3dsem, write_horizon, write_replica  # noqa: E402
+from holoagent_tpu_torch.dataloader.export import (hm3dsem_k, write_hm3dsem, write_horizon, write_iphone,  # noqa: E402
+                                                   write_replica, write_scannet)
 from holoagent_tpu_torch.dataloader.hm3dsem import HM3DSemDataset  # noqa: E402
 from holoagent_tpu_torch.dataloader.horizon import HorizonDataset  # noqa: E402
+from holoagent_tpu_torch.dataloader.iphone import IPhoneDataset  # noqa: E402
 from holoagent_tpu_torch.dataloader.replica import ReplicaDataset  # noqa: E402
+from holoagent_tpu_torch.dataloader.scannet import ScannetDataset  # noqa: E402
 from holoagent_tpu_torch.eval import GTGraph, gt_from_synthetic  # noqa: E402
 from holoagent_tpu_torch.eval.instruction_sets import three_room_instructions  # noqa: E402
 from holoagent_tpu_torch.memory import checkpoint as ckpt_mod  # noqa: E402
@@ -223,9 +247,11 @@ from holoagent_tpu_torch.utils.labels import DEFAULT_ROOM_TYPES, SCANNET_LABELS_
 from holoagent_tpu_torch.utils import tracing  # noqa: E402
 from holoagent_tpu_torch.utils.timing import StageTimer  # noqa: E402
 
-# H100 SXM published peaks (dense tensor cores: bf16, int8; HBM3)
+# H100 SXM published peaks (dense tensor cores: bf16, int8; float32 on the
+# CUDA cores, outside the tensor cores; HBM3)
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # Kernel vs plain version.  Both take bf16 inputs, accumulate in f32 and
 # round the output to bf16; they differ by where the probabilities are
@@ -241,6 +267,13 @@ PEAK_BYTES = 3.35e12
 # of the bias or a key at the mask's edge cannot pass.
 MAX_ERR_OF_MAX = 2.0**-6
 REL_RMS_TOL = 2.0**-7
+# The general route in float32 (float scores, sums and output on both
+# sides): every output within 2e-3 absolute plus 2e-3 relative of the plain
+# version, the reference's own float32 attention tolerance
+# (tests/test_flash_attention.py), and the same mutants rejected.  In bf16
+# it is held as the tensor-core kernels are (the output's own rounding is
+# 2^-8 relative).
+F32_ATOL = F32_RTOL = 2e-3
 # K3 vs plain version: the kernel does the plain version's arithmetic
 # operation for operation (the same f32 row scale, IEEE division, rounding
 # half to even, an exact integer sum, and the epilogue's three roundings with
@@ -251,7 +284,7 @@ REL_RMS_TOL = 2.0**-7
 # versions: x's last 32-wide K slice zeroed, and one per-tensor activation
 # scale in place of the per-row scales.
 K3_MAX_ULPS = 1
-TYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+TYPE_NAMES = fa.TYPE_NAMES  # the dtype's name in a launch's trace key
 FRAMES = 12  # rendered poses; every 2nd is a keyframe (skip_frames 2) -> 6
 SEED = 0
 
@@ -346,41 +379,68 @@ def bound(ops: float, nbytes: float, peak_ops: float):
 # ---------------------------------------------------------------------------
 
 
-def agreement(out, ref) -> dict:
+def agreement(out, ref, f32: bool = False) -> dict:
+    """The bf16 gate's numbers; with `f32` the float32 gate's: `tol` is
+    F32_ATOL and `close` the largest |out - ref| / (F32_ATOL + F32_RTOL
+    |ref|), at most 1 to pass."""
     d, r = out.float() - ref.float(), ref.float()
     ref_max, ref_rms = r.abs().max().item(), r.pow(2).mean().sqrt().item()
-    return dict(max_abs_err=d.abs().max().item(), tol=MAX_ERR_OF_MAX * ref_max, ref_max=ref_max,
-                ref_rms=ref_rms, rel_rms_err=d.pow(2).mean().sqrt().item() / ref_rms)
-
-
-def agrees(a: dict) -> bool:
-    return a["max_abs_err"] <= a["tol"] and a["rel_rms_err"] <= REL_RMS_TOL
-
-
-def hold(name: str, out, ref, mutants) -> dict:
-    """Hold a kernel's output against its plain version; the test must also
-    reject each mutant (a plain version computed with a deliberate fault)."""
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
-    a = agreement(out, ref)
-    check(agrees(a), f"{name}: {a} exceeds max_abs_err <= tol, rel_rms_err <= {REL_RMS_TOL}")
-    for what, bad in mutants:
-        m = agreement(bad, ref)
-        check(not agrees(m), f"{name}: the test would pass a plain version with {what}: {m}")
-        log(f"[kernel] {name}: rejects a plain version with {what}: err {m['max_abs_err']:.3e} "
-            f"(tol {m['tol']:.3e}), rel rms err {m['rel_rms_err']:.3e}")
+    a = dict(max_abs_err=d.abs().max().item(), tol=MAX_ERR_OF_MAX * ref_max, ref_max=ref_max,
+             ref_rms=ref_rms, rel_rms_err=d.pow(2).mean().sqrt().item() / ref_rms)
+    if f32:
+        a.update(tol=F32_ATOL, close=(d.abs() / (F32_ATOL + F32_RTOL * r.abs())).max().item())
     return a
 
 
-def k1_case(name, b, heads, g, gen, d=64):
+def agrees(a: dict) -> bool:
+    if "close" in a:
+        return a["close"] <= 1.0
+    return a["max_abs_err"] <= a["tol"] and a["rel_rms_err"] <= REL_RMS_TOL
+
+
+def hold(name: str, out, ref, mutants, f32: bool = False) -> dict:
+    """Hold a kernel's output against its plain version, at the bf16 gate or
+    (`f32`) the float32 one; the test must also reject each mutant (a plain
+    version computed with a deliberate fault)."""
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+    a = agreement(out, ref, f32)
+    gate = (f"|err| <= {F32_ATOL} + {F32_RTOL} |ref|" if f32
+            else f"max_abs_err <= tol, rel_rms_err <= {REL_RMS_TOL}")
+    check(agrees(a), f"{name}: {a} exceeds {gate}")
+    for what, bad in mutants:
+        m = agreement(bad, ref, f32)
+        check(not agrees(m), f"{name}: the test would pass a plain version with {what}: {m}")
+        log(f"[kernel] {name}: rejects a plain version with {what}: err {m['max_abs_err']:.3e} "
+            f"(tol {m['tol']:.3e}), rel rms err {m['rel_rms_err']:.3e}"
+            + (f", err / (atol + rtol |ref|) {m['close']:.3e}" if f32 else ""))
+    return a
+
+
+def attention_plan(kernel: str, route: str, bh: int, n: int, hw: int = 0, causal: bool = False, d: int = 64) -> dict:
+    """The launch plan of an attention route: the resident kernel's (with
+    its blocks per SM and what limits them), the global kernel's, or the
+    general kernel's grid."""
+    if route == "resident":
+        return resident_plan_report(fa.resident_plan(bh, n, hw, causal=causal, d=d), bh)
+    if route == "general":
+        return dict(fa.general_plan(bh, n), kernel="general (CUDA cores)")
+    p = fa.global_plan(bh, n, rel_pos=kernel == "flash_attention_2d", d=d)
+    bias = "" if kernel == "flash_attention_2d" else ", no bias"
+    return dict(p, kernel=f"global (TMA + wgmma{bias})", waves=p["grid"] / (p["blocks_per_sm"] * p["sms"]))
+
+
+def k1_case(name, b, heads, g, gen, d=64, dtype=torch.bfloat16):
     """One K1 shape: q, k, v as the (B, heads, N, D) views of one (B, N, 3C)
     projection that _attention_2d makes, bias (B*heads, N, g) f32."""
     n = g * g
     bh = b * heads
-    qkv = torch.randn(b, n, 3 * heads * d, generator=gen).to("cuda", torch.bfloat16)
+    f32 = dtype == torch.float32
+    qkv = torch.randn(b, n, 3 * heads * d, generator=gen).to("cuda", dtype)
     q, k, v = qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
     bias_h = (0.5 * torch.randn(bh, n, g, generator=gen)).cuda()
     bias_w = (0.5 * torch.randn(bh, n, g, generator=gen)).cuda()
+    route = fa.k1_route(g, g, d, dtype)
     out = fa.flash_attention_2d(q, k, v, bias_h, bias_w, (g, g))
     ref = fa.flash_attention_2d_ref(q, k, v, bias_h, bias_w, (g, g))
     no_row0, no_bias_h, no_bias_w = bias_h.clone(), bias_h.clone(), bias_w.clone()
@@ -391,40 +451,37 @@ def k1_case(name, b, heads, g, gen, d=64):
         ("the keys of grid row 0 dropped", fa.flash_attention_2d_ref(q, k, v, no_row0, bias_w, (g, g))),
         ("bias_h dropped on one query tile", fa.flash_attention_2d_ref(q, k, v, no_bias_h, bias_w, (g, g))),
         ("bias_w dropped on one query tile", fa.flash_attention_2d_ref(q, k, v, bias_h, no_bias_w, (g, g))),
-    ])
-    if fa.k1_route(g, g, d) == "resident":
-        res["plan"] = resident_plan_report(fa.resident_plan(bh, n, 2 * g, d=d), bh)
-    else:
-        p = fa.global_plan(bh, n, d=d)
-        res["plan"] = dict(p, kernel="global (TMA + wgmma)", waves=p["grid"] / (p["blocks_per_sm"] * p["sms"]))
-    mask = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(b, heads, n, n).to(torch.bfloat16)
+    ], f32=f32)
+    res["plan"] = attention_plan("flash_attention_2d", route, bh, n, 2 * g, d=d)
+    mask = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(b, heads, n, n).to(dtype)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     res.update(
-        kernel="flash_attention_2d", key=(b, heads, g, g, d), name=name,
-        shape=f"B={b} H={heads} N={n} h=w={g} D={d} packed qkv bf16",
+        kernel="flash_attention_2d", key=(b, heads, g, g, d, TYPE_NAMES[dtype]), name=name, route=route,
+        shape=f"B={b} H={heads} N={n} h=w={g} D={d} packed qkv {TYPE_NAMES[dtype]}",
         ms=time_ms(lambda: fa.flash_attention_2d(q, k, v, bias_h, bias_w, (g, g))),
         plain_ms=time_ms(lambda: fa.flash_attention_2d_ref(q, k, v, bias_h, bias_w, (g, g)), samples=5, reps=2),
         library_ms=time_ms(lambda: sdpa(q, k, v, attn_mask=mask)),
     )
     flops = 4.0 * n * n * d * bh
-    nbytes = 4 * bh * n * d * 2 + bh * n * 2 * g * 4
-    res["bound_ms"], res["bound_by"] = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    nbytes = 4 * bh * n * d * q.element_size() + bh * n * 2 * g * 4
+    res["bound_ms"], res["bound_by"] = bound(flops, nbytes, PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
     res["ratio_to_library"] = res["ms"] / res["library_ms"]
     del mask
     return res
 
 
-def k2_case(name, b, h, t, causal, gen, packed=False):
-    """One K2 shape.  packed: q, k, v are the (B, H, T, D) views of one
-    (B, T, 3*H*D) projection that _attend makes (token stride 3*H*D, head
-    stride D), the layout the towers launch, and the call must allocate
-    nothing but its output; else contiguous tensors."""
-    d = 64
+def k2_case(name, b, h, t, causal, gen, packed=False, d=64, dtype=torch.bfloat16):
+    """One K2 shape at head dim `d` in `dtype`.  packed: q, k, v are the (B,
+    H, T, D) views of one (B, T, 3*H*D) projection that _attend makes (token
+    stride 3*H*D, head stride D), the layout the towers launch, and the call
+    must allocate nothing but its output; else contiguous tensors."""
+    f32 = dtype == torch.float32
     if packed:
-        qkv = torch.randn(b, t, 3 * h * d, generator=gen).to("cuda", torch.bfloat16)
+        qkv = torch.randn(b, t, 3 * h * d, generator=gen).to("cuda", dtype)
         q, k, v = (z.reshape(b, t, h, d).transpose(1, 2) for z in qkv.split(h * d, dim=-1))
     else:
-        q, k, v = (torch.randn(b, h, t, d, generator=gen).to("cuda", torch.bfloat16) for _ in range(3))
+        q, k, v = (torch.randn(b, h, t, d, generator=gen).to("cuda", dtype) for _ in range(3))
+    route = fa.k2_route(t, causal, d, dtype)
     out = fa.flash_attention(q, k, v, causal=causal)
     ref = fa.flash_attention_ref(q, k, v, causal=causal)
     v_bad = v.clone()
@@ -435,7 +492,7 @@ def k2_case(name, b, h, t, causal, gen, packed=False):
     else:
         mutants.append(("the key mask shifted by one (key T - 1 dropped)", fa.flash_attention_ref(q, k[:, :, :-1],
                                                                                                  v[:, :, :-1])))
-    res = hold(name, out, ref, mutants)
+    res = hold(name, out, ref, mutants, f32=f32)
     if packed:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -446,22 +503,19 @@ def k2_case(name, b, h, t, causal, gen, packed=False):
         del again
         check(res["alloc_bytes"] == res["out_bytes"], f"{name}: the call allocated {res['alloc_bytes']} bytes at its "
               f"peak, its output is {res['out_bytes']}: the wrapper copied q, k or v")
-    route = fa.k2_route(t, causal)
-    if route == "resident":
-        res["plan"] = resident_plan_report(fa.resident_plan(b * h, t, causal=causal), b * h)
-    else:
-        p = fa.global_plan(b * h, t, rel_pos=False)
-        res["plan"] = dict(p, kernel="global (TMA + wgmma, no bias)", waves=p["grid"] / (p["blocks_per_sm"] * p["sms"]))
+    res["plan"] = attention_plan("flash_attention", route, b * h, t, causal=causal, d=d)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     res.update(
-        kernel="flash_attention", key=(b, h, t, causal), name=name, route=route,
-        shape=f"B={b} H={h} T={t} D={d} causal={causal} {'packed qkv' if packed else 'contiguous'} bf16",
+        kernel="flash_attention", key=(b, h, t, d, causal, TYPE_NAMES[dtype]), name=name, route=route,
+        shape=f"B={b} H={h} T={t} D={d} causal={causal} {'packed qkv' if packed else 'contiguous'} "
+              f"{TYPE_NAMES[dtype]}",
         ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=causal)),
         plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v, causal=causal), samples=5, reps=2),
         library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=causal)),
     )
     pairs = t * (t + 1) / 2 if causal else t * t  # key/query pairs this input needs
-    res["bound_ms"], res["bound_by"] = bound(4.0 * pairs * d * b * h, 4 * b * h * t * d * 2, PEAK_BF16_FLOPS)
+    res["bound_ms"], res["bound_by"] = bound(4.0 * pairs * d * b * h, 4 * b * h * t * d * q.element_size(),
+                                             PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
     res["ratio_to_library"] = res["ms"] / res["library_ms"]
     return res
 
@@ -603,6 +657,28 @@ def kernel_phases():
     # a vlm-base prefill layer (width 1024, 16 heads): the long route, causal
     cases.append(k2_case("k2_prefill_causal_t1024", 4, 16, 1024, True, gen, packed=True))
     cases.append(k2_case("k2_t600", 4, 16, 600, False, gen, packed=True))  # the long route, a ragged key tile
+    # head dim 80 (CLIP ViT-H-14's visual tower: width 1280, 16 heads): its
+    # tier-16 crop stack on the resident route, and the long route
+    cases.append(k2_case("k2_vit_h14_tier16", 33, 16, 257, False, gen, packed=True, d=80))
+    cases.append(k2_case("k2_d80_t600", 4, 16, 600, False, gen, packed=True, d=80))
+    # the general route: float32 at head dims 16, 32 and 64, causal or not
+    # (a float32 ViT-L/14 crop stack among them), the reference's K1 test
+    # shapes (head dim 32, 16 x 16 and 32 x 32 grids), and bf16 where no
+    # tensor-core kernel is instantiated (head dim 16: config/synthetic.yaml's
+    # text batch, 256 prompts, 4 heads, the text tower computing in bf16 as
+    # the reference's does; 32; 80 with causal)
+    f32 = torch.float32
+    cases.append(k2_case("k2_text_tiny_causal_t77", 256, 4, 77, True, gen, packed=True, d=16))
+    cases.append(k2_case("k2_f32_d16_causal_t77", 64, 4, 77, True, gen, packed=True, d=16, dtype=f32))
+    cases.append(k2_case("k2_f32_d16_t257", 8, 4, 257, False, gen, packed=True, d=16, dtype=f32))
+    cases.append(k2_case("k2_f32_d32_causal_t384", 4, 16, 384, True, gen, d=32, dtype=f32))
+    cases.append(k2_case("k2_f32_d32_t600", 4, 16, 600, False, gen, packed=True, d=32, dtype=f32))
+    cases.append(k2_case("k2_f32_d64_tier16", 33, 16, 257, False, gen, packed=True, dtype=f32))
+    cases.append(k2_case("k2_f32_d64_causal_t600", 4, 16, 600, True, gen, packed=True, dtype=f32))
+    cases.append(k2_case("k2_bf16_d32_t257", 8, 2, 257, False, gen, packed=True, d=32))
+    cases.append(k2_case("k2_bf16_d80_causal_t257", 4, 16, 257, True, gen, packed=True, d=80))
+    cases.append(k1_case("k1_f32_d32_g16", 1, 3, 16, gen, d=32, dtype=f32))
+    cases.append(k1_case("k1_f32_d32_g32", 1, 3, 32, gen, d=32, dtype=f32))
     for c in cases:
         log_attention_case(c)
     cases += k3_phase()
@@ -610,9 +686,10 @@ def kernel_phases():
 
 
 def log_attention_case(c) -> None:
+    gate = (f"err / (atol + rtol |ref|) {c['close']:.3e}, limit 1" if "close" in c else
+            f"rel rms err {c['rel_rms_err']:.3e} tol {REL_RMS_TOL:.3e}")
     log(f"[kernel] {c['name']:23s} {c['shape']:49s} err {c['max_abs_err']:.3e} (tol {c['tol']:.3e}, "
-        f"max|ref| {c['ref_max']:.3e}, rms(ref) {c['ref_rms']:.3e}, rel rms err {c['rel_rms_err']:.3e} "
-        f"tol {REL_RMS_TOL:.3e}) "
+        f"max|ref| {c['ref_max']:.3e}, rms(ref) {c['ref_rms']:.3e}, {gate}) route {c['route']} "
         f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  library {c['library_ms']:.4f} ms  "
         f"({c['ratio_to_library']:.2f}x)  bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
     if "alloc_bytes" in c:
@@ -623,9 +700,10 @@ def log_attention_case(c) -> None:
     limit = (f"; {p['regs']} registers a thread, {p['smem']} bytes of shared memory a block: the registers "
              f"allow {p['blocks_by_regs']} blocks an SM, shared memory {p['blocks_by_smem']}, so "
              f"{p['limit']} set the limit" if "limit" in p else "")
+    occupancy = (f", {p['blocks_per_sm']} blocks per SM on {p['sms']} SMs: {p['waves']:.2f} waves"
+                 if "blocks_per_sm" in p else "")
     log(f"[kernel] {c['name']}: {p['kernel']} kernel, {tiles}"
-        f"{p['blocks_per_head']} blocks a head, {p['grid']} blocks, {p['blocks_per_sm']} blocks per SM "
-        f"on {p['sms']} SMs: {p['waves']:.2f} waves{limit}")
+        f"{p['blocks_per_head']} blocks a head, {p['grid']} blocks{occupancy}{limit}")
 
 
 # ---------------------------------------------------------------------------
@@ -771,7 +849,9 @@ def text_tower_check(text):
     clip_mod.encode_text(text, tokens)
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    log(f"[towers] CLIP ViT-L/14 text tower (12 layers, width 768) flash vs plain on the SCANNET20 prompts: "
+    v = text.variant
+    log(f"[towers] CLIP {v.name} text tower ({v.t_layers} layers, width {v.t_width}, {v.t_heads} heads) flash vs "
+        f"plain on the SCANNET20 prompts: "
         f"min cosine {cos:.6f}; a batch of 256 prompts through the kernels: {batch_ms:.3f} ms of device time, "
         f"{wall_ms:.3f} ms of wall time (synchronised)")
     check(cos > TEXT_COS_MIN, "CLIP text tower through K2 disagrees with the plain version")
@@ -779,9 +859,12 @@ def text_tower_check(text):
 
 def counted(run):
     """Set every launch count to 0 and start tracing, call `run`, then read
-    the counts and each launch's device time (CUDA events)."""
+    the counts (the attention kernels' by route too) and each launch's
+    device time (CUDA events)."""
     for w in WRAPPERS.values():
         w.launches, w.trace = 0, []
+        for r in getattr(w, "routes", {}):
+            w.routes[r] = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -789,6 +872,8 @@ def counted(run):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: w.launches for name, w in WRAPPERS.items()}
+    # and the attention kernels' launches by route, as "<wrapper>.<route>"
+    launches.update({f"{name}.{r}": n for name, w in WRAPPERS.items() for r, n in getattr(w, "routes", {}).items()})
     in_path = {}  # kernel -> {shape key: [launches, device ms summed]}
     for name, w in WRAPPERS.items():
         check(len(w.trace) == w.launches, f"{name}: {len(w.trace)} traced launches, counter {w.launches}")
@@ -893,11 +978,12 @@ def same_graph(built, loaded) -> None:
         check((a.view_id, a.img_id, a.object_ids) == (b.view_id, b.img_id, b.object_ids), "loaded graph: views")
 
 
-def graph_path(clip, sam, text, ds, cfg, tag, save_path):
+def graph_path(clip, sam, text, ds, cfg, tag, save_path, cfg_dict=CONFIG):
     """apps.build_map.run (the Mapper, label features, HMSGraph.build, room
-    names, save) into `save_path`, HMSGraph.load of the saved graph, then
-    the fast queries, counted as one run.  K1: 12 launches a keyframe; K2:
-    24 a keyframe and 12 a padded text batch (SCANNET20's prompts,
+    names, save) at `cfg_dict`'s settings into `save_path`, HMSGraph.load of
+    the saved graph, then the fast queries, counted as one run.  K1 and K2:
+    `launches_a_keyframe` (12 and 24 at the 3-room yaml's towers); K2 also a
+    text-tower depth for each padded text batch (SCANNET20's prompts,
     ROOM_TYPES', and each engine call that encodes new texts)."""
     skip = cfg.pipeline.skip_frames
     nf = len(range(0, len(ds), skip))
@@ -905,7 +991,7 @@ def graph_path(clip, sam, text, ds, cfg, tag, save_path):
     tok = tokenizer()
     timer = StageTimer("cuda")
     engine_batches = []
-    gcfg = from_dict({**CONFIG, "main": {**CONFIG["main"], "save_path": save_path}})
+    gcfg = from_dict({**cfg_dict, "main": {**cfg_dict["main"], "save_path": save_path}})
 
     def run():
         graph_dir, built = build_map.run(gcfg, dataset=ds, models=(clip, sam, clip.variant, sam.variant, text),
@@ -930,8 +1016,9 @@ def graph_path(clip, sam, text, ds, cfg, tag, save_path):
     report(tag, nf, wall, timer, launches, in_path, peak, {})
     label_batches = sum(math.ceil(len(v) * len(clip_mod.TEMPLATES) / 256) for v in (SCANNET_LABELS_20, DEFAULT_ROOM_TYPES))
     batches = label_batches + sum(engine_batches)
-    expect = {"flash_attention_2d": 12 * nf, "flash_attention": 24 * nf + text.variant.t_layers * batches,
-              "quant_matmul": 0}
+    per = launches_a_keyframe(clip, sam, cfg)
+    expect = {"flash_attention_2d": per["flash_attention_2d"] * nf, "quant_matmul": per["quant_matmul"] * nf,
+              "flash_attention": per["flash_attention"] * nf + text.variant.t_layers * batches}
     log(f"[{tag}] text batches of 256 prompts: {label_batches} for the label features, {engine_batches} for the "
         f"engine's calls; expected launches {expect}")
     for name, n in expect.items():
@@ -954,7 +1041,7 @@ def graph_path(clip, sam, text, ds, cfg, tag, save_path):
         log(f"[{tag}] query {q!r}: floor {floor.floor_id if floor else None}, rooms {[r.room_id for r in rooms]}, "
             f"objects {[(o.object_id, o.name) for o in objs]}, FastMatching {fast[-1]:.3f} ms")
     log(f"[{tag}] FastMatching per query: median {statistics.median(fast):.3f} ms, max {max(fast):.3f} ms")
-    return dict(launches=launches, in_path=in_path, nf=nf, graph_dir=graph_dir)
+    return dict(launches=launches, in_path=in_path, nf=nf, graph_dir=graph_dir, graph=loaded, answers=answers)
 
 
 # ---------------------------------------------------------------------------
@@ -1223,12 +1310,18 @@ def generative_path(clip, sam, text, ds, cfg, graph_dir, rates, tag):
 # ---------------------------------------------------------------------------
 
 
-def launches_a_keyframe(clip, sam) -> dict:
+def launches_a_keyframe(clip, sam, cfg=None) -> dict:
     """K1, K2 and K3 launches one keyframe's extraction makes: one K1 a SAM
     layer (all windows of a windowed layer in one launch), one K2 a CLIP
-    layer, and with int8 towers one K3 for each of a layer's four linears."""
+    layer, and with int8 towers one K3 for each of a layer's four linears;
+    with a `cfg`, no K1 unless ``pipeline.extract_impl`` is "flash" and no
+    K2 unless ``extract_clip_impl`` is (the towers' attention then runs
+    plain, and an untiered extraction encodes a keyframe's crops in one
+    batch either way)."""
     depth, layers = sam.variant.depth, clip.variant.v_layers
-    return {"flash_attention_2d": depth, "flash_attention": layers,
+    sam_k, clip_k = (True, True) if cfg is None else (cfg.pipeline.extract_impl == "flash",
+                                                      cfg.pipeline.extract_clip_impl == "flash")
+    return {"flash_attention_2d": depth * sam_k, "flash_attention": layers * clip_k,
             "quant_matmul": 4 * (depth if sam.quant else 0) + 4 * (layers if clip.quant else 0)}
 
 
@@ -1691,12 +1784,13 @@ def _leaves(m):
     return [m]
 
 
-def build_path(tag, cfg, models, ds_check, expect_batches):
-    """build_map.run (its loader from the config), counted; stage times,
-    keyframes/s and the launches a keyframe held."""
+def build_path(tag, cfg, models, ds_check, expect_batches, dataset=None):
+    """build_map.run (its loader from the config, or `dataset`), counted;
+    stage times, keyframes/s and the launches a keyframe held."""
     clip, sam = models[0], models[1]
     timer = StageTimer("cuda")
-    (graph_dir, graph), wall, launches, in_path, peak = counted(lambda: build_map.run(cfg, models=models, timer=timer))
+    (graph_dir, graph), wall, launches, in_path, peak = counted(
+        lambda: build_map.run(cfg, dataset=dataset, models=models, timer=timer))
     stats = json.loads((Path(graph_dir).parent / "build_stats.json").read_text())
     nf = stats["frames"]
     per = launches_a_keyframe(clip, sam)
@@ -3229,6 +3323,271 @@ def x_rank(rank, world, save_root):
     return dict(paths=paths, numbers=numbers)
 
 
+# ---------------------------------------------------------------------------
+# (y): the configurations whose attention the tensor-core kernels did not
+# take, and those the card had not run
+# ---------------------------------------------------------------------------
+
+# config/synthetic.yaml, field for field (the hermetic demo: test-tiny CLIP at
+# float32, test-tiny SAM; the yaml leaves the extraction at its defaults,
+# plain attention, untiered)
+SYNTHETIC_YAML = {
+    "main": {"dataset": "synthetic", "scene_id": "synthetic_demo", "save_path": "/tmp/holoagent_tpu/scene_graphs",
+             "depth_cut": 20.0},
+    "models": {
+        "clip": {"type": "test-tiny", "dtype": "float32"},
+        "sam": {"type": "test-tiny", "points_per_side": 4, "pred_iou_thresh": -10.0, "stability_score_thresh": 0.0,
+                "min_mask_region_area": 20, "max_masks": 8},
+    },
+    "pipeline": {
+        "voxel_size": 0.08, "skip_frames": 2, "grid_resolution": 0.08, "point_capacity": 32768,
+        "mask_point_capacity": 512, "instance_capacity": 64, "instance_max_area_frac": 1.0,
+        "instance_max_extent_m": 1.0e9, "obj_labels": "SCANNET20",
+    },
+}
+SYNTHETIC_FEATURE_ATOL = 1e-4  # the card's float32 features against the CPU's (tests/test_torch_attention_routes.py)
+
+
+def with_clip(cfg_dict, clip_type, sam_type=None, quant=False):
+    """A copy of `cfg_dict` with another CLIP (and SAM) type, W8A8 towers where `quant`."""
+    d = copy.deepcopy(cfg_dict)
+    d["models"]["clip"]["type"] = clip_type
+    if sam_type:
+        d["models"]["sam"]["type"] = sam_type
+    for tower in ("clip", "sam"):
+        d["models"][tower]["quant"] = quant
+    return d
+
+
+def routes_of(launches, name) -> dict:
+    return {r: n for k, n in launches.items() if k.startswith(f"{name}.") for r in [k.split(".", 1)[1]]}
+
+
+def y1_vit_h14(ds, tmp, tag):
+    """(y1) CLIP ViT-H-14 (visual width 1280 over 16 heads: head dim 80; its
+    text tower 16 heads of 64) at config/synthetic_tpu_3room.yaml's
+    settings otherwise, the towers from apps.common.load_models: the visual
+    tower through K2 (resident route, D = 80) and as W8A8 against the plain
+    tower; Mapper.run + finalize in bf16 and W8A8 (every K2 launch on the
+    resident route, none on the general one); build_map.run, load and the
+    fast queries; then query_bench --slow --vlm clip over that graph, with
+    ClipVLM's features against the plain tower."""
+    d, qd = with_clip(CONFIG, "ViT-H-14"), with_clip(CONFIG, "ViT-H-14", quant=True)
+    cfg, qcfg = from_dict(d), from_dict(qd)
+    t0 = time.perf_counter()
+    clip, sam, cv, _, text = load_models(cfg)
+    qclip, qsam, _, _, _ = load_models(qcfg)
+    log(f"[{tag}] load_models: {cv.name} (visual {cv.v_layers} layers, width {cv.v_width}, head dim "
+        f"{cv.v_width // cv.v_heads}; text {cv.t_layers} layers, head dim {cv.t_width // cv.t_heads}) + SAM "
+        f"{sam.variant.name}, bf16 and W8A8, in {time.perf_counter() - t0:.3f} s")
+    _, crops = tower_inputs(sam, ds[0])
+    n0 = fa.flash_attention.routes["resident"]
+    f_k = clip_mod.encode_image(clip, crops, impl="flash")
+    check(fa.flash_attention.routes["resident"] - n0 == cv.v_layers, f"{tag}: the visual tower's K2 route")
+    f_p = clip_mod.encode_image(clip, crops, impl="xla")
+    q_k = clip_mod.encode_image(qclip, crops, impl="flash")
+    with k3_plain():
+        q_p = clip_mod.encode_image(qclip, crops, impl="xla")
+    cos, qcos = (f_k * f_p).sum(-1).min().item(), (q_k * q_p).sum(-1).min().item()
+    log(f"[{tag}] {cv.name} features through K2 (D = 80, resident route) vs plain: min cosine {cos:.6f}; W8A8 "
+        f"through K2 and K3 vs plain: min cosine {qcos:.6f}; W8A8 vs bf16 {(q_k * f_k).sum(-1).min().item():.6f}")
+    check(cos > 0.9998, f"{tag}: {cv.name} through K2 disagrees with the plain tower")
+    check(qcos > 0.9994, f"{tag}: W8A8 {cv.name} through the kernels disagrees with the plain versions")
+    paths = {}
+    for kind, c, sm, cf in (("bf16", clip, sam, cfg), ("W8A8", qclip, qsam, qcfg)):
+        path = main_path(c, sm, ds, cf, f"{tag}-{kind.lower()}", launches_a_keyframe(c, sm))
+        path.pop("ms")
+        routes = routes_of(path["launches"], "flash_attention")
+        log(f"[{tag}-{kind.lower()}] K2 launches by route {routes}")
+        check(routes["resident"] == cv.v_layers * path["nf"] and routes["general"] == 0 and routes["long"] == 0,
+              f"{tag}: {kind} K2 routes {routes}")
+        check({k[3] for k in path["in_path"]["flash_attention"]} == {80}, f"{tag}: K2 at a head dim other than 80")
+        paths[f"(y1) ViT-H-14 {kind}: Mapper.run"] = path
+    del qclip, qsam
+    torch.cuda.empty_cache()
+    graph = graph_path(clip, sam, text, ds, cfg, f"{tag}-graph", os.path.join(tmp, "graph"), cfg_dict=d)
+    paths["(y1) ViT-H-14: build_map.run, load, queries"] = dict(graph, graph=None, answers=None)
+    paths["(y1) ViT-H-14: query_bench --slow --vlm clip"] = slow_path(
+        clip, sam, text, ds, cfg, graph["graph_dir"], f"{tag}-slow")
+    return paths
+
+
+TIE_M = 1e-5  # two keyframes this close in distance to a room tie (float32 point sums differ in the last bits)
+
+
+def room_distance(room, frame) -> float:
+    """A keyframe's distance to a room as HMSGraph.build assigns frames: the
+    nearest of the room's points in the floor plane."""
+    return float(np.min(np.linalg.norm(room.pcd_points[:, :2] - frame.pose[:2, 3], axis=1)))
+
+
+def same_synthetic_graph(tag, card, cpu, ds) -> None:
+    """The card's config/synthetic.yaml graph and answers against the CPU
+    run's: labels, objects, rooms and views equal, features within
+    SYNTHETIC_FEATURE_ATOL, the same answers to every query.  A room no
+    keyframe falls in takes the nearest keyframe overall; where two
+    keyframes tie for it (within TIE_M: the scene's points are float32 sums,
+    whose order CUDA does not fix) either is the reference's answer, and
+    that room's view and features are held to the CPU's features of the
+    keyframe the card chose."""
+    a, b = card["graph"], cpu["graph"]
+    check([(r.room_id, r.name) for r in a.rooms] == [(r.room_id, r.name) for r in b.rooms], f"{tag}: rooms differ")
+    check([(o.object_id, o.name, o.view_ids) for o in a.objects] == [(o.object_id, o.name, o.view_ids)
+                                                                    for o in b.objects], f"{tag}: objects differ")
+    check([v.view_id for v in a.views] == [v.view_id for v in b.views], f"{tag}: view ids differ")
+    keyframe_feats = {v.img_id: v.embedding for v in b.views}  # the CPU run's, by image id
+    pairs, ties = [(o.embedding, p.embedding) for o, p in zip(a.objects, b.objects)], []
+    for ra, rb in zip(a.rooms, b.rooms):
+        ia, ib = [v.img_id for v in ra.views], [v.img_id for v in rb.views]
+        if ia == ib:
+            pairs += [(ra.embeddings, rb.embeddings)]
+        else:
+            gap = abs(room_distance(rb, ds[ia[0]]) - room_distance(rb, ds[ib[0]])) if len(ia) == len(ib) == 1 else 1.0
+            check(gap <= TIE_M, f"{tag}: room {ra.room_id}'s views {ia} on the card, {ib} on the CPU (no tie: {gap})")
+            ties.append(f"room {ra.room_id}: keyframe {ia[0]} on the card, {ib[0]} on the CPU, {gap:.2e} m apart")
+            pairs += [(ra.embeddings, [keyframe_feats[ia[0]]])]
+        pairs += [(v.embedding, keyframe_feats[v.img_id]) for v in ra.views]
+    worst = 0.0
+    for x, y in pairs:
+        worst = max(worst, float(np.abs(np.asarray(x, np.float64) - np.asarray(y, np.float64)).max()))
+    for (q, ra), (_, rb) in zip(card["answers"], cpu["answers"]):
+        same = ((ra[0] and ra[0].floor_id) == (rb[0] and rb[0].floor_id)
+                and [r.room_id for r in ra[1]] == [r.room_id for r in rb[1]]
+                and [o.object_id for o in ra[2]] == [o.object_id for o in rb[2]])
+        check(same, f"{tag}: query {q!r} answered otherwise on the CPU")
+    log(f"[{tag}] the card's graph against the CPU run's: {len(a.rooms)} rooms, {len(a.objects)} objects "
+        f"{sorted(o.name for o in a.objects)}, {len(a.views)} views equal (ties: {ties or 'none'}); object, room and "
+        f"view features within {worst:.3e} (limit {SYNTHETIC_FEATURE_ATOL:.0e}); {len(card['answers'])} queries "
+        f"answered alike")
+    check(worst <= SYNTHETIC_FEATURE_ATOL, f"{tag}: features differ by {worst:.3e}")
+
+
+def y2_synthetic(tmp, tag):
+    """(y2) config/synthetic.yaml as it stands, the towers from load_models
+    (float32 test-tiny: the text tower's K2 on the general route, head dim
+    16): build_map.run, HMSGraph.load and FSRQueryEngine.query_hierarchy
+    over QUERIES on the card, counted, against the same run on the CPU.
+    Then the same config with the kernel extraction (extract_impl and
+    extract_clip_impl "flash": test-tiny SAM's K1, head dim 32 on its 4 x 4
+    grid and 2 x 2 windows, and the visual tower's K2, head dim 16, both on
+    the general route), Mapper.run against the plain extraction's."""
+    cfg = from_dict(SYNTHETIC_YAML)
+    ds = load_dataset(cfg)
+    models = load_models(cfg)
+    clip, sam, text = models[0], models[1], models[4]
+    check(clip.patch_w.dtype == sam.dtype == torch.float32, f"{tag}: the towers are not in the CLIP dtype")
+    log(f"[{tag}] config/synthetic.yaml: {len(ds)} frames at {ds[0].rgb.shape[1]}x{ds[0].rgb.shape[0]}, CLIP "
+        f"{clip.variant.name} and SAM {sam.variant.name} float32 (load_models), extraction "
+        f"{cfg.pipeline.extract_impl}/{cfg.pipeline.extract_clip_impl}")
+    paths = {}
+    card = graph_path(clip, sam, text, ds, cfg, tag, os.path.join(tmp, "card"), cfg_dict=SYNTHETIC_YAML)
+    routes = routes_of(card["launches"], "flash_attention")
+    log(f"[{tag}] K2 launches by route {routes}")
+    check(routes["general"] == card["launches"]["flash_attention"] > 0, f"{tag}: K2 routes {routes}")
+    paths["(y2) synthetic.yaml: build_map.run, load, queries"] = dict(card, graph=None, answers=None)
+    t0 = time.perf_counter()
+    cpu_models = load_models(cfg, device="cpu")
+    cpu_cfg = from_dict({**SYNTHETIC_YAML, "main": {**SYNTHETIC_YAML["main"], "save_path": os.path.join(tmp, "cpu")}})
+    graph_dir, _ = build_map.run(cpu_cfg, dataset=ds, models=cpu_models, device="cpu")
+    eng = FSRQueryEngine(HMSGraph.load(graph_dir), cpu_models[4], tokenizer(), device="cpu")
+    cpu = dict(graph=HMSGraph.load(graph_dir), answers=[(q, eng.query_hierarchy(q)) for q in QUERIES])
+    log(f"[{tag}] the same config on the CPU: {time.perf_counter() - t0:.3f} s")
+    same_synthetic_graph(tag, card, cpu, ds)
+    # the kernel extraction: K1 and K2 on the general route, against the plain extraction
+    fd = copy.deepcopy(SYNTHETIC_YAML)
+    fd["pipeline"].update(extract_impl="flash", extract_clip_impl="flash")
+    fcfg = from_dict(fd)
+    Mapper(fcfg, clip, sam).process_frame(ds[0])  # warm-up
+    ms, wall, launches, in_path, peak = counted(lambda: Mapper(fcfg, clip, sam).run(ds))
+    plain = Mapper(cfg, clip, sam).run(ds)
+    nf = len(ms.keyframes)
+    per = launches_a_keyframe(clip, sam, fcfg)
+    k1r, k2r = routes_of(launches, "flash_attention_2d"), routes_of(launches, "flash_attention")
+    diff = (ms.keyframe_feats - plain.keyframe_feats).abs().max().item()
+    log(f"[{tag}-flash] Mapper.run with extract_impl and extract_clip_impl flash: {nf} keyframes in {wall:.3f} s; "
+        f"launches {launches}; keyframe features against the plain extraction's within {diff:.3e}; scene rows "
+        f"{int(ms.scene.num)} / {int(plain.scene.num)}, instances {int(ms.instances.num())} / "
+        f"{int(plain.instances.num())}")
+    for name, n in per.items():
+        check(launches[name] == n * nf, f"{tag}-flash: {name} launches {launches[name]} != {n} x {nf}")
+    check(k1r["general"] == launches["flash_attention_2d"] > 0 and k2r["general"] == launches["flash_attention"] > 0,
+          f"{tag}-flash: routes K1 {k1r} K2 {k2r}")
+    check(diff <= SYNTHETIC_FEATURE_ATOL and int(ms.scene.num) == int(plain.scene.num),
+          f"{tag}-flash: the kernel extraction's map differs from the plain one's")
+    paths["(y2) synthetic.yaml, extraction flash: Mapper.run"] = dict(launches=launches, in_path=in_path, nf=nf)
+    return paths
+
+
+def y3_widths(ds, tag):
+    """(y3) CLIP ViT-B-32 (the config's default: T = 50, head dim 64; its
+    text tower 8 heads of 64) and SAM vit_l (16 heads of 64, global layers
+    5, 11, 17, 23), each in Mapper.run + finalize at the 3-room yaml's
+    settings otherwise (towers from load_models, bf16); the ViT-B-32 text
+    tower against its plain version."""
+    paths = {}
+    for name, d in (("ViT-B-32", with_clip(CONFIG, "ViT-B-32")), ("vit_l", with_clip(CONFIG, "ViT-L-14", "vit_l"))):
+        cfg = from_dict(d)
+        clip, sam, cv, sv, text = load_models(cfg)
+        log(f"[{tag}] {name}: CLIP {cv.name} (T = {(cv.image_size // cv.patch) ** 2 + 1}, head dim "
+            f"{cv.v_width // cv.v_heads}), SAM {sv.name} ({sv.depth} layers, head dim {sv.width // sv.heads}, global "
+            f"layers {sv.global_idx})")
+        path = main_path(clip, sam, ds, cfg, f"{tag}-{name}", launches_a_keyframe(clip, sam))
+        path.pop("ms")
+        paths[f"(y3) {name}: Mapper.run"] = path
+        if name == "ViT-B-32":
+            text_tower_check(text)
+        del clip, sam, text
+        torch.cuda.empty_cache()
+    return paths
+
+
+def y5_layouts(clip, sam, text, root, tag):
+    """(y5) the ScanNet and iPhone layouts: 12 frames of the three-room walk
+    at 640x480 written by dataloader/export.py, read back through the
+    port's loaders (every frame held to the written one) into build_map.run
+    at the 3-room yaml's settings."""
+    paths = {}
+    k = hm3dsem_k(480, 640)
+    frames, _ = render_walk(SyntheticScene.three_room(SEED + 2), FRAMES, (480, 640), k)
+    for layout in ("scannet", "iphone"):
+        d = copy.deepcopy(CONFIG)
+        d["main"].update(dataset=layout, dataset_path=os.path.join(root, layout), scene_id="scene0000_00",
+                         save_path=os.path.join(root, f"{layout}-graphs"))
+        cfg = from_dict(d)
+        scene_dir = os.path.join(cfg.main.dataset_path, cfg.main.scene_id)
+        if layout == "scannet":
+            back = write_scannet(scene_dir, frames, cfg.main.depth_cut)
+            ds = load_dataset(cfg)
+            check(isinstance(ds, ScannetDataset), f"{tag}: load_dataset gave {type(ds).__name__}")
+            loader_frames_equal(f"{tag}-{layout}", ds, back)
+        else:  # apps.common.load_dataset has no iphone entry, as the reference's: the loader directly
+            back = write_iphone(scene_dir, frames, cfg.main.depth_cut)
+            ds = IPhoneDataset(cfg.main.dataset_path, cfg.main.scene_id, cfg.main.depth_cut)
+            loader_frames_equal(f"{tag}-{layout}", ds, back, QUAT_POSE_ATOL)
+        paths[f"(y5) {layout} layout: build_map.run"] = build_path(
+            f"{tag}-{layout}", cfg, (clip, sam, clip.variant, sam.variant, text), ds,
+            label_batches(cfg.pipeline.obj_labels, "ROOM_TYPES"), dataset=ds)
+    return paths
+
+
+def y_phase(clip, sam, text, ds, tmp):
+    """(y1)-(y5), each path counted; returns the paths."""
+    paths = y1_vit_h14(ds, os.path.join(tmp, "y1"), "y1")
+    torch.cuda.empty_cache()
+    stamp("(y1) ViT-H-14")
+    paths.update(y2_synthetic(os.path.join(tmp, "y2"), "y2"))
+    stamp("(y2) config/synthetic.yaml")
+    paths.update(y3_widths(ds, "y3"))
+    stamp("(y3) ViT-B-32, vit_l")
+    paths["(y4) serving: serving_bench vlm-base"] = serving_path(
+        "y4", "vlm-base", None, batch=8, requests=16, new_tokens=32, chunk=8, chain_calls=5)
+    torch.cuda.empty_cache()
+    stamp("(y4) serving: serving_bench vlm-base")
+    paths.update(y5_layouts(clip, sam, text, os.path.join(tmp, "y5"), "y5"))
+    stamp("(y5) ScanNet and iPhone layouts")
+    return paths
+
+
 def hold_new_shapes(cases, paths):
     """A case for every K1, K2 and K3 shape a path launched that no case
     held: K1 and K2 as views of one packed projection, as _attention_2d and
@@ -3240,13 +3599,14 @@ def hold_new_shapes(cases, paths):
     for kernel in WRAPPERS:
         for key in sorted({k for path in paths.values() for k in path["in_path"][kernel] if k not in held}):
             if kernel == "flash_attention":
-                b, h, t, causal = key
-                c = k2_case(f"k2_b{b}_h{h}_t{t}{'_causal' if causal else ''}", b, h, t, causal, gen, packed=True)
+                b, h, t, d, causal, dt = key
+                c = k2_case(f"k2_b{b}_h{h}_t{t}_d{d}{'_causal' if causal else ''}_{dt}", b, h, t, causal, gen,
+                            packed=True, d=d, dtype=dtypes[dt])
                 log_attention_case(c)
             elif kernel == "flash_attention_2d":
-                b, heads, gh, gw, d = key
+                b, heads, gh, gw, d, dt = key
                 check(gh == gw, f"K1 launched on a {gh}x{gw} grid: no case builds it")
-                c = k1_case(f"k1_b{b}_h{heads}_g{gh}_d{d}", b, heads, gh, gen, d=d)
+                c = k1_case(f"k1_b{b}_h{heads}_g{gh}_d{d}_{dt}", b, heads, gh, gen, d=d, dtype=dtypes[dt])
                 log_attention_case(c)
             else:
                 m, k, n, x_name, out_name = key
@@ -3272,51 +3632,70 @@ def path_sums(cases, paths) -> None:
                 f"({sums['ms'] / sums['library_ms']:.2f}x), bound {sums['bound_ms']:.4f} ms")
 
 
+SOURCE_FA = "holoagent_tpu_torch/csrc/flash_attention.cu"
+# (wrapper, route or None for all its launches, source, the TPU kernel, main path)
 KERNELS = (
-    ("flash_attention_2d", "holoagent_tpu_torch/csrc/flash_attention.cu", "holoagent_tpu/ops/flash_attention.py:157",
-     "bf16"),
-    ("flash_attention", "holoagent_tpu_torch/csrc/flash_attention.cu", "holoagent_tpu/ops/flash_attention.py:217",
-     "bf16"),
-    ("quant_matmul", "holoagent_tpu_torch/csrc/quant_matmul.cu", "holoagent_tpu/ops/quant_matmul.py:70", "w8a8"),
+    ("flash_attention_2d", None, SOURCE_FA, "holoagent_tpu/ops/flash_attention.py:157", "bf16"),
+    ("flash_attention", None, SOURCE_FA, "holoagent_tpu/ops/flash_attention.py:217", "bf16"),
+    ("flash_attention_2d", "general", SOURCE_FA, "holoagent_tpu/ops/flash_attention.py:157",
+     "(y2) synthetic.yaml, extraction flash: Mapper.run"),
+    ("flash_attention", "general", SOURCE_FA, "holoagent_tpu/ops/flash_attention.py:217",
+     "(y2) synthetic.yaml: build_map.run, load, queries"),
+    ("quant_matmul", None, "holoagent_tpu_torch/csrc/quant_matmul.cu", "holoagent_tpu/ops/quant_matmul.py:70", "w8a8"),
 )
+
+
+def key_route(kernel, key):
+    """The route an attention launch of trace key `key` took (None for K3)."""
+    dtypes = {v: k for k, v in TYPE_NAMES.items()}
+    if kernel == "flash_attention":
+        b, h, t, d, causal, dt = key
+        return fa.k2_route(t, causal, d, dtypes[dt])
+    if kernel == "flash_attention_2d":
+        b, heads, gh, gw, d, dt = key
+        return fa.k1_route(gh, gw, d, dtypes[dt])
+    return None
 
 
 def kernels_line(cases, paths):
     """One entry per kernel, for its main-path run: the bf16 Mapper run for
-    K1 and K2, the W8A8 Mapper run for K3.  `ms` is the kernel's device time
-    inside that run (CUDA events around each launch).  `isolated_ms`,
-    `plain_ms`, `library_ms` and `bound_ms` are the kernel phase's
-    per-launch numbers at each launch's shape, summed over the run's
-    launches; `ratio_to_library` is `isolated_ms` over `library_ms`, both
-    device time with the stream held, so host work inside the in-run
-    events does not count against the kernel.
-    `launches_by_path` has every counted path's launches.  `cases` holds
-    the per-launch numbers themselves."""
+    K1 and K2 (the tensor-core routes), (y2)'s runs for their general route
+    (config/synthetic.yaml's float32 towers), the W8A8 Mapper run for K3.
+    `ms` is the kernel's device time inside that run (CUDA events around
+    each launch).  `isolated_ms`, `plain_ms`, `library_ms` and `bound_ms`
+    are the kernel phase's per-launch numbers at each launch's shape,
+    summed over the run's launches; `ratio_to_library` is `isolated_ms`
+    over `library_ms`, both device time with the stream held, so host work
+    inside the in-run events does not count against the kernel.
+    `launches_by_path` has every counted path's launches (of the route, for
+    a route's entry).  `cases` holds the per-launch numbers themselves."""
     by_key = {c["key"]: c for c in cases.values()}
     line = []
-    for name, source, replaces, main in KERNELS:
+    for name, route, source, replaces, main in KERNELS:
         for tag, path in paths.items():
             unchecked = [k for k in path["in_path"][name] if k not in by_key]
             check(not unchecked, f"{name}: the {tag} path launched shapes {unchecked} that no kernel phase held")
-        runs, nf, launches = paths[main]["in_path"][name], paths[main]["nf"], paths[main]["launches"][name]
-        check(launches > 0, f"{name}: not launched on its main path")
+        count = name if route is None else f"{name}.{route}"
+        runs = {k: r for k, r in paths[main]["in_path"][name].items() if route in (None, key_route(name, k))}
+        nf, launches = paths[main]["nf"], paths[main]["launches"][count]
+        check(launches > 0 and launches == sum(n for n, _ in runs.values()), f"{count}: not launched on its main path")
 
         def summed(field):
             return sum(n * by_key[k][field] for k, (n, _) in runs.items())
 
         dominant = max(runs, key=lambda k: runs[k][0] * by_key[k]["bound_ms"])
         mine = [{f: v for f, v in c.items() if f not in ("key", "kernel")}
-                for c in cases.values() if c["kernel"] == name]
+                for c in cases.values() if c["kernel"] == name and route in (None, c.get("route"))]
         in_run = sum(t for _, t in runs.values())
         line.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+            "name": count, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": in_run, "plain_ms": summed("plain_ms"),
             "bound_ms": summed("bound_ms"), "bound_by": by_key[dominant]["bound_by"],
             "library_ms": summed("library_ms"), "isolated_ms": summed("ms"),
             "ratio_to_library": summed("ms") / summed("library_ms"),
-            "per": f"the counted {main} Mapper run: {launches} launches over {nf} keyframes",
-            "launches_by_path": {tag: path["launches"][name] for tag, path in paths.items()},
+            "per": f"the counted {main} run: {launches} launches over {nf} keyframes",
+            "launches_by_path": {tag: path["launches"][count] for tag, path in paths.items()},
             "cases": mine,
         })
     return {"kernels": line}
@@ -3499,6 +3878,8 @@ def main() -> int:
             text, os.path.join(oracle_dir, "three_room_seed0", "graph"), "text-w8a8"))
         paths["(w) W8A8 text tower"] = dict(launches=launches, in_path=in_path)
         stamp("(w) W8A8 text tower")
+        torch.cuda.empty_cache()
+        paths.update(y_phase(clip, sam, text, ds, os.path.join(tmp, "y")))
         X_SHARED.update(clip=clip, sam=sam, text=text, ds=ds)
         torch.cuda.empty_cache()
         x = launch.spawn(x_rank, torch.cuda.device_count(), "cuda", args=(os.path.join(tmp, "x"),))[0]

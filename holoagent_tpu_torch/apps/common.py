@@ -15,8 +15,9 @@ from ..models.tokenizer import SimpleTokenizer
 
 def load_models(cfg: Config, device: DeviceLike = None):
     """CLIP (visual and text towers) + SAM per config, on `device` (the card
-    unless the caller asks for the CPU), in the configured working dtypes:
-    converted checkpoints where ``models.clip.checkpoint`` /
+    unless the caller asks for the CPU), in the working dtype
+    ``models.clip.dtype``, which the reference's Mapper runs both towers in
+    (it reads no ``models.sam.dtype``; neither does this): converted checkpoints where ``models.clip.checkpoint`` /
     ``models.sam.checkpoint`` name one (an open_clip and an official SAM
     torch state dict, ``convert_open_clip`` / ``convert_sam``), else seeded
     random weights (``main.seed`` for both CLIP towers, from one generator,
@@ -30,7 +31,7 @@ def load_models(cfg: Config, device: DeviceLike = None):
     cv = clip_mod.VARIANTS[cfg.models.clip.type]
     sv = sam_mod.VARIANTS[cfg.models.sam.type]
     c, sc = cfg.models.clip, cfg.models.sam
-    dtype, sam_dtype = dtype_of(c.dtype), dtype_of(sc.dtype)
+    dtype = sam_dtype = dtype_of(c.dtype)
     if c.checkpoint:
         clip, text = clip_mod.load_checkpoint(c.checkpoint, cv, dtype=torch.float32 if c.quant else dtype, device=dev)
         text = text.to(dtype)

@@ -7,22 +7,25 @@
 //   * K2  flash_attention (_flash_kernel): plain blockwise attention over
 //     (B, H, T, D), optionally causal (key <= query: every row keeps its
 //     diagonal), keys at or past T masked.
-// Two kernels, instantiated per route:
-//   - global_kernel<REL_POS> (TMA + wgmma, warp-specialised): with the bias,
-//     K1 for N > T_MAX (the SAM global layers, a 64 x 64 grid); without it,
-//     K2 for T > T_MAX, causal or not (long prefills);
-//   - resident_kernel<REL_POS, CAUSAL>: K1 for N <= T_MAX (the SAM windows,
-//     14 x 14) with the bias on; K2 for T <= T_MAX with it off, non-causal
-//     (every CLIP ViT-L/14 visual layer, T = 257) or causal (the CLIP text
-//     tower, T = 77).  The bias and the causal mask never meet.
-// Both read q, k and v where they lie (any batch, head and token strides
-// that are multiples of 16 bytes, last dim contiguous, such as the views of
-// a fused qkv projection), write the output as (B, T, H, D), keep every
-// score in registers (no (T, T) tensor in device memory) and mask the
-// ragged key edge themselves.  No route copies its inputs or its output.
-// K2's head dim is 64 (CLIP and the VLMs); K1's is 64 (SAM vit_b, vit_l)
-// or 80 (vit_h: width 1280 over 16 heads): both of K1's kernels are
-// instantiated at each (the template parameter D).
+// Three kernels, instantiated per route:
+//   - global_kernel<REL_POS, D> (TMA + wgmma, warp-specialised): with the
+//     bias, K1 for N > T_MAX (the SAM global layers, a 64 x 64 grid);
+//     without it, K2 for T > T_MAX, causal or not (long prefills);
+//   - resident_kernel<REL_POS, CAUSAL, D>: K1 for N <= T_MAX (the SAM
+//     windows, 14 x 14) with the bias on; K2 for T <= T_MAX with it off,
+//     non-causal (every CLIP visual layer, T = 257 for the /14 towers, 50
+//     for ViT-B-32) or causal (the CLIP text tower, T = 77).  The bias and
+//     the causal mask never meet;
+//   - general_kernel<T, REL_POS, CAUSAL, DM>: everything else (below).
+// The two tensor-core kernels take bf16 and read q, k and v where they lie
+// (any batch, head and token strides that are multiples of 16 bytes, last
+// dim contiguous, such as the views of a fused qkv projection), write the
+// output as (B, T, H, D), keep every score in registers (no (T, T) tensor in
+// device memory) and mask the ragged key edge themselves.  No route copies
+// its inputs or its output.  Both are instantiated at head dims 64 (SAM
+// vit_b and vit_l, CLIP ViT-B-32 and ViT-L/14, every text tower, the VLMs)
+// and 80 (SAM vit_h, CLIP ViT-H-14's visual tower: width 1280 over 16
+// heads; without the causal mask, which no layer at 80 has).
 //
 // What bounds it on the H100.  At the port's shapes (D = 64 unless named):
 //   K1 global layers  BH=12,  N=4096: 51.5 GFLOP of tensor-core work against
@@ -38,7 +41,9 @@
 //                     against 121 MB -> memory-bound (36 us);
 //   K2 long prefill   BH=4*16, T=1024, causal: 8.6 GFLOP against 34 MB ->
 //                     compute-bound on paper (9 us), latency-bound in fact:
-//                     512 blocks of 1-8 key tiles each.
+//                     512 blocks of 1-8 key tiles each;
+//   K2 ViT-H-14 crops BH=33*16, T=257, D=80: 11.2 GFLOP against 87 MB ->
+//                     memory-bound (26 us).
 //
 // The global kernel (N > T_MAX).  A block of three warpgroups owns 128
 // queries of one head.
@@ -115,14 +120,17 @@
 // registers set the limit, and the causal instantiation is built for four
 // blocks an SM (at most 128 registers a thread).
 //
-// Head dim 80 (K1 only).  An 80-wide bf16 row is 160 bytes: ten 16-byte
-// chunks, which no XOR swizzle within the row permutes.
+// Head dim 80 (K1, and K2 without the causal mask).  An 80-wide bf16 row
+// is 160 bytes: ten 16-byte chunks, which no XOR swizzle within the row
+// permutes.
 //   - The resident kernel keeps its panels unswizzled at a pitch of 176
 //     bytes (Panel<80>): the 8 rows an ldmatrix reads at one chunk start 12
 //     banks apart modulo 32, on 8 different groups of 4 banks.  QK^T takes
 //     5 k16 steps (the fifth's B fragments by ldmatrix.x2), P V 10 n8 tiles.
 //     The windows' K, V and bias (88 KB at N = 196) let two blocks share an
-//     SM, so the instantiation is built for two (up to 255 registers).
+//     SM, so the instantiation is built for two (up to 255 registers).  K2's
+//     (ViT-H-14's crops, T = 257) stages 94 KB of K and V a block without
+//     the bias: two blocks an SM as well.
 //   - The global kernel splits each Q, K and V tile into a head (columns
 //     0-63, one 128-byte-swizzled TMA box as at D = 64) and a tail (columns
 //     64-79, a second box with the 32-byte swizzle): 20 KB a tile, 140 KB
@@ -133,6 +141,27 @@
 //     would run both products at a padded 128 (1.6x the tensor-core work
 //     and 64 accumulator registers a thread instead of 40) and need 225 KB
 //     of shared memory for 3 stages; the split form does no wasted work.
+//
+// The general kernel (every other input: float32, a head dim other than 64
+// and 80, a causal layer at 80, a K1 grid neither tensor-core kernel takes,
+// such as the tiny towers' and the fixture towers').  It covers both TPU
+// kernels, _flash_kernel and _flash2d_kernel, for the inputs the reference
+// takes and the kernels above do not: any float32 or bf16 input, any head
+// dim up to GEN_D_MAX, any T, any h x w grid.  It is the correctness route,
+// not the production route: no configuration's production path reaches it
+// at bf16, and the port's float32 matmuls keep TF32 off, so it runs on the
+// CUDA cores (FFMA), with float32 scores and sums.  A block of 256 threads
+// owns 64 queries of one head, four threads a query, each with a quarter of
+// the head dims (float4 groups); K and V tiles of 64 keys (32 above a head
+// dim of 64) are staged in shared memory as float32, zero-padded to the head
+// dim's bucket (16, 32, 64 or 128), and read back as broadcast float4s.  The
+// online softmax runs in log2 units over chunks of 16 keys, one rescale a
+// chunk.  q, k and v are read by element at any strides (last dim
+// contiguous), so no layout is copied.  Its bound on the H100 is the larger
+// of 4 T^2 D operations a head (half the pairs with causal) at the 67
+// TFLOP/s float32 non-tensor peak (989 TFLOP/s for bf16 inputs, whose
+// products a tensor-core kernel could take) and the bytes of q, k, v and o
+// at 3.35 TB/s; it runs far from it, and a later PR may redesign it.
 //
 // Left for later: a persistent tile loop and intra-warpgroup overlap of the
 // next tile's QK^T with this tile's softmax in the global kernel; wgmma in
@@ -430,7 +459,7 @@ static_assert(resident_smem<HEAD_DIM_WIDE>(T_MAX, RES_HW_MAX) <= 232448, "reside
 // q, k, v (B, H, T, D) bf16 at the given strides; o (B, T, H, D) bf16,
 // contiguous.  Block (x, y): head y = b * H + h and its x-th share of the
 // head's query tiles of 16 rows, which its warps take in turn.  D = 64, or
-// 80 with the bias (K1 only).
+// 80 without the causal mask.
 template <bool REL_POS, bool CAUSAL, int D = 64>
 __global__ void __launch_bounds__(RES_THREADS, CAUSAL ? RES_MIN_BLOCKS_CAUSAL
                                                       : D == 64 ? RES_MIN_BLOCKS : RES_MIN_BLOCKS_WIDE)
@@ -438,7 +467,7 @@ resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, Strides sq, Strides sk,
                 Strides sv, int heads, int t, int tiles_per_block, float scale, RelPos rp) {
   static_assert(!(REL_POS && CAUSAL), "the bias and the causal mask never meet");
-  static_assert(D == 64 || (D == HEAD_DIM_WIDE && REL_POS), "K2 takes D = 64; K1 takes 64 and 80");
+  static_assert(D == 64 || (D == HEAD_DIM_WIDE && !CAUSAL), "D = 64, or 80 without the causal mask");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int t16 = (t + 15) & ~15;
   const int n16 = t16 / 16;
@@ -875,7 +904,6 @@ global_kernel(const __grid_constant__ Maps<D> maps, const float* __restrict__ bi
               const float* __restrict__ bias_w, __nv_bfloat16* __restrict__ o, int heads, int n, int grid_h,
               int causal, float scale_log2) {
   using T = GTile<D>;
-  static_assert(D == 64 || REL_POS, "K2 takes D = 64");
   __shared__ __align__(8) uint64_t q_bar, full_bar[G_STAGES], empty_bar[G_STAGES];
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // Q's head, Q's tail, then the ring; a stage holds K's head, V's head, K's
@@ -1185,6 +1213,15 @@ cudaError_t global_smem_allowance() {
   return err;
 }
 
+// global_kernel<REL_POS, D>'s blocks per SM (the occupancy calculator's).
+template <bool REL_POS, int D = 64>
+cudaError_t global_blocks_per_sm(int* per_sm) {
+  cudaError_t err = global_smem_allowance<REL_POS, D>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, global_kernel<REL_POS, D>, G_THREADS, GTile<D>::SMEM);
+  return err;
+}
+
 template <bool REL_POS, int D = 64>
 int launch_global(const void* q, const void* k, const void* v, const void* bias_h, const void* bias_w, void* o,
                   Strides sq, Strides sk, Strides sv, int b, int h, int n, int grid_h, int causal, float scale,
@@ -1209,14 +1246,201 @@ int launch_global(const void* q, const void* k, const void* v, const void* bias_
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The general kernel: K1 and K2 for every input the tensor-core kernels do
+// not take (float32, head dims other than 64 and 80, K1's other grids)
+// ---------------------------------------------------------------------------
+
+constexpr int GEN_BQ = 64;               // queries a block
+constexpr int GEN_THREADS = 4 * GEN_BQ;  // a quad of threads a query
+constexpr int GEN_CHUNK = 16;            // keys a step of the online softmax
+constexpr int GEN_D_MAX = 128;           // largest head dim; ops/flash_attention.py has a copy
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
+
+// Keys a shared tile at padded head dim DM: K and V held as float32, 16 KB each at most.
+template <int DM>
+__host__ __device__ constexpr int gen_bk() { return DM <= 64 ? 64 : 32; }
+
+// q, k, v (B, H, T, d) of T (float or bf16) at the given strides, last dim
+// contiguous, no alignment asked; o (B, T, H, d), contiguous.  DM: d rounded
+// up to 16, 32, 64 or 128 (the padding is zeros).  Block (x, y): head x =
+// b * H + h, query tile y (with causal the heaviest, last, tile first).
+// Thread 4 r + part owns query row r of the tile and its head dims 16 i + 4
+// part + e: a score is four partial dot products summed over the quad by
+// two shuffles, so the quad holds equal scores, maxima and sums.  REL_POS
+// adds bias_h[q, key / grid_w] + bias_w[q, key % grid_w] for any grid.
+template <typename T, bool REL_POS, bool CAUSAL, int DM>
+__global__ void __launch_bounds__(GEN_THREADS)
+general_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
+               Strides sq, Strides sk, Strides sv, int heads, int t, int d, float scale, RelPos rp) {
+  static_assert(!(REL_POS && CAUSAL), "the bias and the causal mask never meet");
+  constexpr int BK = gen_bk<DM>();
+  constexpr int PER = DM / 16;  // float4 groups of head dims a thread
+  static_assert(BK % GEN_CHUNK == 0, "a tile is whole chunks");
+  __shared__ __align__(16) float ks[BK * DM];
+  __shared__ __align__(16) float vs[BK * DM];
+
+  const int bh = blockIdx.x, b = bh / heads, h = bh % heads;
+  const int q0 = (CAUSAL ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * GEN_BQ;
+  const int part = threadIdx.x & 3;
+  const int row = q0 + (threadIdx.x >> 2);
+  const int last = CAUSAL ? min(row, t - 1) : t - 1;  // the last key this row sees
+  const int key_end = CAUSAL ? min(t, q0 + GEN_BQ) : t;  // the keys the block reads
+  q += b * sq.b + h * sq.h;
+  k += b * sk.b + h * sk.h;
+  v += b * sv.b + h * sv.h;
+
+  float qr[PER][4], acc[PER][4];
+#pragma unroll
+  for (int i = 0; i < PER; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 16 * i + 4 * part + e;
+      qr[i][e] = row < t && c < d ? to_f32(q[row * sq.t + c]) : 0.f;
+      acc[i][e] = 0.f;
+    }
+  const float* bias_h_row = nullptr;
+  const float* bias_w_row = nullptr;
+  if constexpr (REL_POS) {  // a row past t reads row t - 1's and is not stored
+    const size_t r = static_cast<size_t>(bh) * t + min(row, t - 1);
+    bias_h_row = rp.bias_h + r * rp.grid_h;
+    bias_w_row = rp.bias_w + r * rp.grid_w;
+  }
+  // scores in log2 units: exp(x) = 2^(x * log2(e))
+  const float sc = REL_POS ? scale : scale * LOG2E;
+  float m = NEG_INF, l = 0.f;
+
+  for (int k0 = 0; k0 < key_end; k0 += BK) {
+    const int nk = min(BK, key_end - k0);
+    __syncthreads();  // every thread is done with the last tile
+    for (int i = threadIdx.x; i < BK * DM; i += GEN_THREADS) {
+      const int r = i / DM, c = i % DM;
+      const bool in = r < nk && c < d;
+      ks[i] = in ? to_f32(k[(k0 + r) * sk.t + c]) : 0.f;
+      vs[i] = in ? to_f32(v[(k0 + r) * sv.t + c]) : 0.f;
+    }
+    __syncthreads();
+    for (int j0 = 0; j0 < nk; j0 += GEN_CHUNK) {
+      float s[GEN_CHUNK];
+      float mx = m;
+      int ky = 0, kx = 0;
+      if constexpr (REL_POS) {
+        ky = (k0 + j0) / rp.grid_w;
+        kx = k0 + j0 - ky * rp.grid_w;
+      }
+#pragma unroll
+      for (int j = 0; j < GEN_CHUNK; ++j) {
+        const float* kr = ks + (j0 + j) * DM + 4 * part;
+        float dot = 0.f;
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+          const float4 kk = *reinterpret_cast<const float4*>(kr + 16 * i);
+          dot = fmaf(qr[i][0], kk.x, dot);
+          dot = fmaf(qr[i][1], kk.y, dot);
+          dot = fmaf(qr[i][2], kk.z, dot);
+          dot = fmaf(qr[i][3], kk.w, dot);
+        }
+        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+        const bool seen = k0 + j0 + j <= last;  // keys past the row's last (or past t) masked
+        float x;
+        if constexpr (REL_POS) {
+          x = seen ? fmaf(dot, scale, bias_h_row[ky] + bias_w_row[kx]) * LOG2E : NEG_INF;
+          if (++kx == rp.grid_w) {
+            kx = 0;
+            ++ky;
+          }
+        } else {
+          x = seen ? dot * sc : NEG_INF;
+        }
+        s[j] = x;
+        mx = fmaxf(mx, x);
+      }
+      const float alpha = exp2f(m - mx);
+      m = mx;
+      l *= alpha;
+#pragma unroll
+      for (int i = 0; i < PER; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] *= alpha;
+#pragma unroll
+      for (int j = 0; j < GEN_CHUNK; ++j) {
+        const float p = exp2f(s[j] - mx);
+        l += p;
+        const float pv = to_f32(from_f32<T>(p));  // bf16: P V takes P rounded, as the tensor-core kernels do
+        const float* vr = vs + (j0 + j) * DM + 4 * part;
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+          const float4 vv = *reinterpret_cast<const float4*>(vr + 16 * i);
+          acc[i][0] = fmaf(pv, vv.x, acc[i][0]);
+          acc[i][1] = fmaf(pv, vv.y, acc[i][1]);
+          acc[i][2] = fmaf(pv, vv.z, acc[i][2]);
+          acc[i][3] = fmaf(pv, vv.w, acc[i][3]);
+        }
+      }
+    }
+  }
+  if (row >= t) return;
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+  T* out = o + ((static_cast<size_t>(b) * t + row) * heads + h) * d;
+#pragma unroll
+  for (int i = 0; i < PER; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 16 * i + 4 * part + e;
+      if (c < d) out[c] = from_f32<T>(acc[i][e] * inv);
+    }
+}
+
+template <typename T, bool REL_POS, bool CAUSAL, int DM>
+void launch_general_dm(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk, Strides sv,
+                       int b, int h, int t, int d, float scale, RelPos rp, cudaStream_t stream) {
+  const dim3 grid(b * h, (t + GEN_BQ - 1) / GEN_BQ);
+  general_kernel<T, REL_POS, CAUSAL, DM><<<grid, GEN_THREADS, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), sq, sk, sv,
+      h, t, d, scale, rp);
+}
+
+template <typename T, bool REL_POS, bool CAUSAL>
+int launch_general(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk, Strides sv, int b,
+                   int h, int t, int d, float scale, RelPos rp, cudaStream_t stream) {
+  if (d <= 16)
+    launch_general_dm<T, REL_POS, CAUSAL, 16>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream);
+  else if (d <= 32)
+    launch_general_dm<T, REL_POS, CAUSAL, 32>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream);
+  else if (d <= 64)
+    launch_general_dm<T, REL_POS, CAUSAL, 64>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream);
+  else
+    launch_general_dm<T, REL_POS, CAUSAL, GEN_D_MAX>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_general_any(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk, Strides sv, int b,
+                       int h, int t, int d, int causal, float scale, RelPos rp, cudaStream_t stream) {
+  if (rp.bias_h != nullptr)
+    return launch_general<T, true, false>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream);
+  return causal ? launch_general<T, false, true>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream)
+                : launch_general<T, false, false>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream);
+}
+
 }  // namespace
 
-// K1: q, k, v (b, h, n, d) bf16 at strides s*_b, s*_h, s*_t (elements;
-// multiples of 8, starts 16-byte aligned), d = 64 or 80; bias_h (b*h, n,
-// grid_h) and bias_w (b*h, n, grid_w) f32, contiguous; o (b, n, h, d) bf16,
-// contiguous; n == grid_h * grid_w.  n <= T_MAX: the resident kernel with
-// the bias, for grid_h + grid_w <= RES_HW_MAX; else the global kernel, which
-// takes grid_w == 64 only.  Returns the cudaError_t of the launch.
+// K1's tensor-core routes: q, k, v (b, h, n, d) bf16 at strides s*_b,
+// s*_h, s*_t (elements; multiples of 8, starts 16-byte aligned), d = 64 or
+// 80; bias_h (b*h, n, grid_h) and bias_w (b*h, n, grid_w) f32, contiguous;
+// o (b, n, h, d) bf16, contiguous; n == grid_h * grid_w.  n <= T_MAX: the
+// resident kernel with the bias, for grid_h + grid_w <= RES_HW_MAX; else the
+// global kernel, which takes grid_w == 64 only (any other grid takes
+// ha_flash_attention_general).  Returns the cudaError_t of the launch.
 extern "C" int ha_flash_attention_2d(const void* q, const void* k, const void* v, const void* bias_h,
                                      const void* bias_w, void* o, long long sq_b, long long sq_h, long long sq_t,
                                      long long sk_b, long long sk_h, long long sk_t, long long sv_b,
@@ -1239,21 +1463,25 @@ extern "C" int ha_flash_attention_2d(const void* q, const void* k, const void* v
                                                       scale, s);
 }
 
-// K2's two routes, each with the same arguments: q, k, v (b, h, t, 64) bf16
-// at strides s*_b, s*_h, s*_t (elements; multiples of 8, starts 16-byte
-// aligned); o (b, t, h, 64) bf16, contiguous; causal != 0 masks key >
-// query.  Each returns the cudaError_t of the launch.
+// K2's two tensor-core routes, each with the same arguments: q, k, v (b, h,
+// t, d) bf16 at strides s*_b, s*_h, s*_t (elements; multiples of 8, starts
+// 16-byte aligned), d = 64, or 80 without causal (no model of the repo has a
+// causal layer at 80: ops/flash_attention.py sends one to
+// ha_flash_attention_general); o (b, t, h, d) bf16, contiguous; causal != 0
+// masks key > query.  Each returns the cudaError_t of the launch.
 // t <= T_MAX: the resident kernel.
 extern "C" int ha_flash_attention_resident(const void* q, const void* k, const void* v, void* o,
                                            long long sq_b, long long sq_h, long long sq_t, long long sk_b,
                                            long long sk_h, long long sk_t, long long sv_b, long long sv_h,
                                            long long sv_t, int b, int h, int t, int d, int causal, float scale,
                                            void* stream) {
-  if (d != 64 || t <= 0 || t > T_MAX || b <= 0 || h <= 0 || b * h > 65535)
+  if (!(d == 64 || (d == HEAD_DIM_WIDE && !causal)) || t <= 0 || t > T_MAX || b <= 0 || h <= 0 || b * h > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides sq{sq_b, sq_h, sq_t}, sk{sk_b, sk_h, sk_t}, sv{sv_b, sv_h, sv_t};
   const RelPos none{nullptr, nullptr, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == HEAD_DIM_WIDE)
+    return launch_resident<false, false, HEAD_DIM_WIDE>(q, k, v, o, sq, sk, sv, b, h, t, scale, none, s);
   return causal ? launch_resident<false, true>(q, k, v, o, sq, sk, sv, b, h, t, scale, none, s)
                 : launch_resident<false, false>(q, k, v, o, sq, sk, sv, b, h, t, scale, none, s);
 }
@@ -1263,22 +1491,52 @@ extern "C" int ha_flash_attention_long(const void* q, const void* k, const void*
                                        long long sq_h, long long sq_t, long long sk_b, long long sk_h,
                                        long long sk_t, long long sv_b, long long sv_h, long long sv_t, int b, int h,
                                        int t, int d, int causal, float scale, void* stream) {
-  if (d != 64 || t <= T_MAX || b <= 0 || h <= 0 || (t + G_BQ - 1) / G_BQ > 65535)
+  if (!(d == 64 || (d == HEAD_DIM_WIDE && !causal)) || t <= T_MAX || b <= 0 || h <= 0 ||
+      (t + G_BQ - 1) / G_BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_global<false>(q, k, v, nullptr, nullptr, o, Strides{sq_b, sq_h, sq_t}, Strides{sk_b, sk_h, sk_t},
-                              Strides{sv_b, sv_h, sv_t}, b, h, t, 0, causal != 0, scale,
-                              static_cast<cudaStream_t>(stream));
+  const Strides sq{sq_b, sq_h, sq_t}, sk{sk_b, sk_h, sk_t}, sv{sv_b, sv_h, sv_t};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return d == 64 ? launch_global<false>(q, k, v, nullptr, nullptr, o, sq, sk, sv, b, h, t, 0, causal != 0, scale, s)
+                 : launch_global<false, HEAD_DIM_WIDE>(q, k, v, nullptr, nullptr, o, sq, sk, sv, b, h, t, 0, 0,
+                                                       scale, s);
+}
+
+// K1's and K2's general route, every input the tensor-core routes do not
+// take: q, k, v (b, h, t, d) float32 (bf16 == 0) or bf16 (bf16 != 0) at
+// element strides s*_b, s*_h, s*_t (last dim contiguous; any alignment), 1
+// <= d <= GEN_D_MAX; o (b, t, h, d) of the same type, contiguous.  With
+// bias_h non-null (K1): bias_h (b*h, t, grid_h) and bias_w (b*h, t, grid_w)
+// f32, contiguous, t == grid_h * grid_w, any grid, causal 0.  Without (K2):
+// causal != 0 masks key > query.  Returns the cudaError_t of the launch.
+extern "C" int ha_flash_attention_general(const void* q, const void* k, const void* v, const void* bias_h,
+                                          const void* bias_w, void* o, long long sq_b, long long sq_h,
+                                          long long sq_t, long long sk_b, long long sk_h, long long sk_t,
+                                          long long sv_b, long long sv_h, long long sv_t, int b, int h, int t, int d,
+                                          int grid_h, int grid_w, int causal, int bf16, float scale, void* stream) {
+  const bool rel_pos = bias_h != nullptr;
+  if (d <= 0 || d > GEN_D_MAX || t <= 0 || b <= 0 || h <= 0 || static_cast<long long>(b) * h > 0x7fffffff ||
+      (t + GEN_BQ - 1) / GEN_BQ > 65535 || (rel_pos && (causal || bias_w == nullptr || grid_h <= 0 ||
+                                                        grid_w <= 0 || static_cast<long long>(grid_h) * grid_w != t)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides sq{sq_b, sq_h, sq_t}, sk{sk_b, sk_h, sk_t}, sv{sv_b, sv_h, sv_t};
+  const RelPos rp{static_cast<const float*>(bias_h), static_cast<const float*>(bias_w), grid_h, grid_w};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_general_any<__nv_bfloat16>(q, k, v, o, sq, sk, sv, b, h, t, d, causal, scale, rp, s)
+              : launch_general_any<float>(q, k, v, o, sq, sk, sv, b, h, t, d, causal, scale, rp, s);
 }
 
 // The resident kernel's plan for (bh heads, t tokens) into out[0..7] (see
 // resident_report).  hw: grid_h + grid_w for K1 (the bias on), 0 for K2;
-// causal: K2's causal instantiation; d: the head dim (80 with the bias
-// only).  Returns a cudaError_t.
+// causal: K2's causal instantiation; d: the head dim (64, or 80 without
+// causal).  Returns a cudaError_t.
 extern "C" int ha_flash_attention_plan(int bh, int t, int hw, int causal, int d, int* out) {
-  if (t <= 0 || t > T_MAX || hw < 0 || hw > RES_HW_MAX || (hw && causal) || (d != 64 && !(d == HEAD_DIM_WIDE && hw)))
+  if (t <= 0 || t > T_MAX || hw < 0 || hw > RES_HW_MAX || (hw && causal) ||
+      !(d == 64 || (d == HEAD_DIM_WIDE && !causal)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = hw ? (d == 64 ? resident_report<true, false>(bh, t, hw, out)
-                                        : resident_report<true, false, HEAD_DIM_WIDE>(bh, t, hw, out))
+  const bool wide = d == HEAD_DIM_WIDE;
+  const cudaError_t err = hw ? (wide ? resident_report<true, false, HEAD_DIM_WIDE>(bh, t, hw, out)
+                                     : resident_report<true, false>(bh, t, hw, out))
+                          : wide   ? resident_report<false, false, HEAD_DIM_WIDE>(bh, t, 0, out)
                           : causal ? resident_report<false, true>(bh, t, 0, out)
                                    : resident_report<false, false>(bh, t, 0, out);
   return static_cast<int>(err);
@@ -1286,25 +1544,17 @@ extern "C" int ha_flash_attention_plan(int bh, int t, int hw, int causal, int d,
 
 // The global kernel's launch for (bh heads, n tokens), into out[0..3]:
 // blocks per head, blocks, blocks per SM (the occupancy calculator's), SMs.
-// rel_pos: K1's instantiation at head dim d (64 or 80), else K2's (d = 64).
+// rel_pos: K1's instantiation, else K2's; d: the head dim (64 or 80).
 // Returns a cudaError_t.
 extern "C" int ha_flash_attention_global_plan(int bh, int n, int rel_pos, int d, int* out) {
-  if (n <= T_MAX || bh <= 0 || (d != 64 && !(d == HEAD_DIM_WIDE && rel_pos)))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= T_MAX || bh <= 0 || (d != 64 && d != HEAD_DIM_WIDE)) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = !rel_pos   ? global_smem_allowance<false>()
-          : d == 64 ? global_smem_allowance<true>()
-                    : global_smem_allowance<true, HEAD_DIM_WIDE>();
-  if (err == cudaSuccess)
-    err = !rel_pos ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, global_kernel<false>, G_THREADS,
-                                                                   GTile<64>::SMEM)
-          : d == 64
-              ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, global_kernel<true>, G_THREADS, GTile<64>::SMEM)
-              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, global_kernel<true, HEAD_DIM_WIDE>, G_THREADS,
-                                                              GTile<HEAD_DIM_WIDE>::SMEM);
+    err = rel_pos ? (d == 64 ? global_blocks_per_sm<true>(&per_sm) : global_blocks_per_sm<true, HEAD_DIM_WIDE>(&per_sm))
+                  : (d == 64 ? global_blocks_per_sm<false>(&per_sm)
+                             : global_blocks_per_sm<false, HEAD_DIM_WIDE>(&per_sm));
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = (n + G_BQ - 1) / G_BQ;
   out[1] = out[0] * bh;

@@ -16,13 +16,16 @@ map an open_clip state dict onto the port's two towers, with the
 reference's key map.
 
 Each tower carries ``impl``, the attention route it was built for: "flash"
-(kernel K2 on the card; the production widths, head dim 64) unless its
-builder says "xla" (the plain version: the fixture-trained tiny towers,
-whose head dim K2 does not take).  Callers that do not name a route take
-the tower's.  ``forward_image`` and ``forward_text`` are the towers'
-differentiable forwards (a compute ``dtype`` cast inside the autograd
-graph, ``remat``); the serving entry points ``encode_image`` and
-``encode_text`` are the same functions without autograd.
+(kernel K2 on the card, at any width and dtype: its tensor-core routes for
+bf16 at head dim 64, and 80 for ViT-H-14's visual tower, its general route
+for float32 and the tiny towers' head dim 16) unless the code that makes
+it says "xla" (the plain version: the fixture-trained tiny towers, which
+the reference's training and accuracy rows run on its plain attention).
+Callers that do not name a route take the tower's.  ``forward_image`` and
+``forward_text`` are the towers' differentiable forwards (a compute
+``dtype`` cast inside the autograd graph, ``remat``); the serving entry
+points ``encode_image`` and ``encode_text`` are the same functions without
+autograd.
 """
 
 from __future__ import annotations

@@ -120,12 +120,13 @@ def kernel_input(x: torch.Tensor, name: str, dtype: torch.dtype) -> torch.Tensor
     return aligned_contiguous(x)
 
 
-def launch(wrapper, key: tuple, stream: torch.cuda.Stream, entry, *args) -> None:
+def launch(wrapper, key: tuple, stream: torch.cuda.Stream, entry, *args, route: Optional[str] = None) -> None:
     """Launch one C entry point on ``stream``, raise if it reports an error,
-    and count the launch in ``wrapper.launches``.  While ``wrapper.trace``
-    is a list, append ``(key, start, end)``: CUDA events around the launch,
-    so a caller can time the kernel inside a larger run without
-    synchronising."""
+    and count the launch in ``wrapper.launches`` (and in
+    ``wrapper.routes[route]`` where the wrapper has routes).  While
+    ``wrapper.trace`` is a list, append ``(key, start, end)``: CUDA events
+    around the launch, so a caller can time the kernel inside a larger run
+    without synchronising."""
     trace = wrapper.trace
     if trace is not None:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -134,6 +135,8 @@ def launch(wrapper, key: tuple, stream: torch.cuda.Stream, entry, *args) -> None
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: cudaError {err}")
     wrapper.launches += 1
+    if route is not None:
+        wrapper.routes[route] += 1
     if trace is not None:
         end.record(stream)
         trace.append((key, start, end))

@@ -13,32 +13,41 @@ tensor goes through a kernel or the wrapper raises.  The kernels have no
 backward: under grad mode a CUDA input that requires grad raises
 (``_cuda_build.refuse_autograd``); the training forwards run the plain
 versions (``impl="xla"``), as the reference's training does.  Each wrapper counts
-its kernel launches in ``<wrapper>.launches``; while ``<wrapper>.trace`` is a
-list, it also appends CUDA events around each launch (see ``_cuda_build.launch``).
+its kernel launches in ``<wrapper>.launches`` and by route in
+``<wrapper>.routes``; while ``<wrapper>.trace`` is a list, it also appends
+CUDA events around each launch (see ``_cuda_build.launch``).
 
-The kernels take bf16.  K2 takes head dim 64 (every CLIP tower and VLM);
-K1 takes 64 (SAM vit_b, vit_l) and 80 (vit_h), each route instantiated at
-both (``K1_HEAD_DIMS``); any other head dim raises.  Routes (``k1_route``,
-``k2_route``, and ``T_MAX``, the kernel's own limit):
-- K1, N <= ``T_MAX`` (the SAM windows): the resident kernel with the bias,
-  for grids with h + w <= ``RES_HW_MAX``;
-- K1, N > ``T_MAX`` (the SAM global layers): the TMA + ``wgmma`` global
-  kernel with the bias, for grids ``GLOBAL_W`` wide (every SAM variant at
-  1024 px); any other grid raises;
-- K2, T <= ``T_MAX``, causal or not ("resident": every CLIP visual layer,
-  the CLIP text tower): the resident kernel without the bias; with causal
-  each query tile skips the keys past its last row and masks only the
-  chunk that holds its diagonal;
-- K2, T > ``T_MAX``, causal or not ("long": long prefills): the same TMA +
-  ``wgmma`` kernel without the bias, its key loop ending at the diagonal
-  tile with causal.
-Every kernel reads q, k and v where they lie: any batch, head and token
-strides that are multiples of 16 bytes, last dim contiguous, such as
+Like the reference's, the wrappers take any float32 or bf16 input, any head
+dim up to ``GENERAL_D_MAX`` and, for K1, any grid.  The route is chosen from
+the shape and the dtype before the launch (``k1_route``, ``k2_route``;
+``T_MAX`` is the resident kernel's own limit):
+- K1, bf16, head dim 64 or 80 (``K1_HEAD_DIMS``: SAM vit_b, vit_l, vit_h),
+  N <= ``T_MAX`` and h + w <= ``RES_HW_MAX`` (the SAM windows): "resident",
+  the resident tensor-core kernel with the bias;
+- K1, bf16, head dim 64 or 80, N > ``T_MAX`` on a grid ``GLOBAL_W`` wide
+  (every SAM variant's global layers at 1024 px): "global", the TMA +
+  ``wgmma`` kernel with the bias;
+- K2, bf16, head dim 64 (CLIP ViT-B-32 and ViT-L/14, every text tower, the
+  VLMs), causal or not, or 80 without the causal mask (ViT-H-14's visual
+  tower; ``K2_HEAD_DIMS``): "resident" for T <= ``T_MAX`` (with causal each
+  query tile skips the keys past its last row and masks only the chunk that
+  holds its diagonal), "long" beyond (the same TMA + ``wgmma`` kernel
+  without the bias, its key loop ending at the diagonal tile with causal);
+- everything else, for either kernel: "general", one CUDA-core kernel with
+  float32 scores and sums (float32 towers, the tiny and fixture towers' head
+  dims 16 and 32, a causal layer at 80, K1's other grids).  It is the
+  correctness route, not a production one.
+The wrappers raise only for a head dim above ``GENERAL_D_MAX``, another
+dtype, or more heads than a resident or K1 global launch's grid holds
+(``MAX_HEADS``).
+The tensor-core kernels read q, k and v where they lie: any batch, head and
+token strides that are multiples of 16 bytes, last dim contiguous, such as
 ``_attend``'s and ``_attention_2d``'s views of a fused (B, T, 3W) projection
-(``strided_inputs``; a layout no kernel reads in place is copied by
-``kernel_layout``).  Each writes a (B, T, H, D) buffer and the wrapper returns
-its (B, H, T, D) transpose (``attention_output``), so the caller's transpose
-back to (B, T, W) is a view and no K2 call copies anything.
+(``strided_inputs``; a layout they do not read in place is copied by
+``kernel_layout``); the general kernel reads any strides with a contiguous
+last dim.  Each writes a (B, T, H, D) buffer and the wrapper returns its
+(B, H, T, D) transpose (``attention_output``), so the caller's transpose back
+to (B, T, W) is a view and no K2 call copies anything.
 """
 
 from __future__ import annotations
@@ -52,8 +61,14 @@ import torch
 from ._cuda_build import CudaLibrary, aligned_contiguous, check_input, kernel_input, launch, refuse_autograd
 
 NEG_INF = -1e30
-HEAD_DIM = 64  # K2's head dim (CLIP ViT-L/14, the VLMs), and K1's for SAM vit_b and vit_l
-K1_HEAD_DIMS = (64, 80)  # K1's instantiations: 80 is SAM vit_h's (HEAD_DIM_WIDE of csrc/flash_attention.cu)
+HEAD_DIM = 64  # CLIP ViT-B-32 and ViT-L/14, every text tower, the VLMs; SAM vit_b and vit_l
+K1_HEAD_DIMS = (64, 80)  # the tensor-core instantiations: 80 is SAM vit_h's (HEAD_DIM_WIDE of csrc/flash_attention.cu)
+K2_HEAD_DIMS = (64, 80)  # 80: CLIP ViT-H-14's visual tower, without the causal mask
+GENERAL_D_MAX = 128  # the general kernel's largest head dim: GEN_D_MAX of csrc/flash_attention.cu
+GENERAL_BQ = 64  # queries a block of the general kernel: GEN_BQ of csrc/flash_attention.cu
+MAX_HEADS = 65535  # heads the resident and global routes' grids hold (their y dimension)
+DTYPES = (torch.bfloat16, torch.float32)
+TYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}  # in each launch's trace key
 T_MAX = 320  # longest N of the resident kernel: T_MAX of csrc/flash_attention.cu (a test holds them equal)
 GLOBAL_W = 64  # the grid width K1's global kernel takes (N > T_MAX): G_W of csrc/flash_attention.cu
 RES_HW_MAX = 128  # largest h + w of K1's resident route (N <= T_MAX): RES_HW_MAX of csrc/flash_attention.cu
@@ -101,6 +116,7 @@ LIB = CudaLibrary("flash_attention.cu", {
     "ha_flash_attention_2d": [_p, _p, _p, _p, _p, _p, *[_l] * 9, _i, _i, _i, _i, _i, _i, _f, _p],
     "ha_flash_attention_resident": [_p, _p, _p, _p, *[_l] * 9, _i, _i, _i, _i, _i, _f, _p],
     "ha_flash_attention_long": [_p, _p, _p, _p, *[_l] * 9, _i, _i, _i, _i, _i, _f, _p],
+    "ha_flash_attention_general": [_p, _p, _p, _p, _p, _p, *[_l] * 9, *[_i] * 8, _f, _p],
     "ha_flash_attention_plan": [_i, _i, _i, _i, _i, ctypes.POINTER(ctypes.c_int)],
     "ha_flash_attention_global_plan": [_i, _i, _i, _i, ctypes.POINTER(ctypes.c_int)],
 })
@@ -131,12 +147,17 @@ def kernel_layout(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
     return x, strides
 
 
-def strided_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> list:
-    """(tensor, strides) of q, k and v for the resident and global kernels:
-    bf16 CUDA tensors, each read in place where it can be (`kernel_layout`)."""
+def strided_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, route: str) -> list:
+    """(tensor, strides) of q, k and v: CUDA tensors of q's dtype (bf16 for
+    a tensor-core route), each read in place where the route can read it:
+    the 16-byte rule of `kernel_layout` for the tensor-core kernels, a
+    contiguous last dim for the general kernel."""
     for x, nm in ((q, "q"), (k, "k"), (v, "v")):
-        check_input(x, nm, torch.bfloat16)
-    return [kernel_layout(x) for x in (q, k, v)]
+        check_input(x, nm, torch.bfloat16 if route != "general" else q.dtype)
+    if route != "general":
+        return [kernel_layout(x) for x in (q, k, v)]
+    out = [x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v)]
+    return [(x, tuple(x.stride()[:3])) for x in out]
 
 
 def attention_output(b: int, h: int, t: int, d: int, dtype: torch.dtype, device) -> torch.Tensor:
@@ -151,7 +172,7 @@ def resident_plan(bh: int, t: int, hw: int = 0, causal: bool = False, d: int = H
     block in bytes, and the blocks per SM that the registers alone and the
     shared memory alone allow (the card's own figures).  `hw`: grid_h +
     grid_w for K1 (the bias staged too), 0 for K2; `causal`: K2's causal
-    instantiation; `d`: the head dim (80 for K1 only)."""
+    instantiation; `d`: the head dim (64, or 80 without causal)."""
     out = (ctypes.c_int * 8)()
     err = LIB.load().ha_flash_attention_plan(bh, t, hw, int(causal), d, out)
     if err:
@@ -163,8 +184,8 @@ def resident_plan(bh: int, t: int, hw: int = 0, causal: bool = False, d: int = H
 
 def global_plan(bh: int, n: int, rel_pos: bool = True, d: int = HEAD_DIM) -> dict:
     """The global kernel's launch for `bh` heads of `n` tokens on the
-    current card, K1's (`rel_pos`, head dim `d`) or K2's long route: blocks
-    per head, blocks, blocks per SM, SMs."""
+    current card, K1's (`rel_pos`) or K2's long route, at head dim `d`:
+    blocks per head, blocks, blocks per SM, SMs."""
     out = (ctypes.c_int * 4)()
     err = LIB.load().ha_flash_attention_global_plan(bh, n, int(rel_pos), d, out)
     if err:
@@ -172,26 +193,48 @@ def global_plan(bh: int, n: int, rel_pos: bool = True, d: int = HEAD_DIM) -> dic
     return dict(zip(("blocks_per_head", "grid", "blocks_per_sm", "sms"), out))
 
 
-def k1_route(h: int, w: int, d: int = HEAD_DIM) -> str:
+def general_plan(bh: int, t: int) -> dict:
+    """The general kernel's grid for `bh` heads of `t` tokens: query tiles
+    of GENERAL_BQ a head, one block each."""
+    tiles = -(-t // GENERAL_BQ)
+    return {"blocks_per_head": tiles, "grid": tiles * bh}
+
+
+def _takes(d: int, dtype: torch.dtype) -> None:
+    if d > GENERAL_D_MAX:
+        raise ValueError(f"head dim {d}: the kernels take head dims up to {GENERAL_D_MAX}")
+    if dtype not in DTYPES:
+        raise TypeError(f"the kernels take {DTYPES}, got {dtype}")
+
+
+def k1_route(h: int, w: int, d: int = HEAD_DIM, dtype: torch.dtype = torch.bfloat16) -> str:
     """The kernel K1 launches for an h x w grid at head dim `d`: "resident"
-    for N = h*w <= T_MAX and h + w <= RES_HW_MAX, "global" for N > T_MAX on
-    a grid GLOBAL_W wide; raises for any other grid or a head dim not in
-    K1_HEAD_DIMS."""
-    if d not in K1_HEAD_DIMS:
-        raise ValueError(f"head dim {d}: K1 takes {K1_HEAD_DIMS}")
+    (bf16, d in K1_HEAD_DIMS, N = h*w <= T_MAX, h + w <= RES_HW_MAX),
+    "global" (bf16, d in K1_HEAD_DIMS, N > T_MAX on a grid GLOBAL_W wide),
+    else "general"; raises for a head dim above GENERAL_D_MAX or another
+    dtype."""
+    _takes(d, dtype)
+    if dtype != torch.bfloat16 or d not in K1_HEAD_DIMS:
+        return "general"
     if h * w <= T_MAX:
-        if h + w > RES_HW_MAX:
-            raise ValueError(f"grid {h}x{w}: K1's resident kernel takes h + w <= {RES_HW_MAX}")
-        return "resident"
-    if w != GLOBAL_W:
-        raise ValueError(f"grid {h}x{w}, N > {T_MAX}: K1's global kernel takes width {GLOBAL_W}")
-    return "global"
+        return "resident" if h + w <= RES_HW_MAX else "general"
+    return "global" if w == GLOBAL_W else "general"
 
 
-def k2_route(t: int, causal: bool) -> str:
-    """The kernel K2 launches for T tokens: "resident" for T <= T_MAX,
-    "long" (the TMA + wgmma kernel) beyond; causal or not, the same."""
+def k2_route(t: int, causal: bool, d: int = HEAD_DIM, dtype: torch.dtype = torch.bfloat16) -> str:
+    """The kernel K2 launches for T tokens at head dim `d`: for bf16 at d =
+    64 (causal or not) or 80 (not causal) "resident" for T <= T_MAX and
+    "long" (the TMA + wgmma kernel) beyond; else "general"; raises for a
+    head dim above GENERAL_D_MAX or another dtype."""
+    _takes(d, dtype)
+    if dtype != torch.bfloat16 or d not in K2_HEAD_DIMS or (causal and d != HEAD_DIM):
+        return "general"
     return "resident" if t <= T_MAX else "long"
+
+
+def _check_heads(bh: int, route: str) -> None:
+    if route in ("resident", "global") and bh > MAX_HEADS:
+        raise ValueError(f"{bh} heads: the {route} route's grid holds {MAX_HEADS}")
 
 
 # ---------------------------------------------------------------------------
@@ -225,24 +268,30 @@ def flash_attention_2d(
     if q.device.type == "cpu":
         return flash_attention_2d_ref(q, k, v, bias_h, bias_w, grid_hw)
     refuse_autograd("flash_attention_2d", q, k, v, bias_h, bias_w)
-    k1_route(h, w, d)
+    route = k1_route(h, w, d, q.dtype)
+    _check_heads(bh, route)
     flat = q.dim() == 3
     if flat:
         q, k, v = q[None], k[None], v[None]
     b, heads = q.shape[:2]
-    (q, sq), (k, sk), (v, sv) = strided_inputs(q, k, v)
+    (q, sq), (k, sk), (v, sv) = strided_inputs(q, k, v, route)
     bias_h = kernel_input(bias_h, "bias_h", torch.float32)
     bias_w = kernel_input(bias_w, "bias_w", torch.float32)
     o = attention_output(b, heads, n, d, q.dtype, q.device)
-    launch(
-        flash_attention_2d, (b, heads, h, w, d), torch.cuda.current_stream(q.device), LIB.load().ha_flash_attention_2d,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_h.data_ptr(), bias_w.data_ptr(), o.data_ptr(),
-        *sq, *sk, *sv, b, heads, n, d, h, w, d**-0.5,
-    )
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_h.data_ptr(), bias_w.data_ptr(), o.data_ptr())
+    lib, stream = LIB.load(), torch.cuda.current_stream(q.device)
+    key = (b, heads, h, w, d, TYPE_NAMES[q.dtype])
+    if route == "general":
+        launch(flash_attention_2d, key, stream, lib.ha_flash_attention_general, *ptrs, *sq, *sk, *sv, b, heads, n, d,
+               h, w, 0, int(q.dtype == torch.bfloat16), d**-0.5, route=route)
+    else:
+        launch(flash_attention_2d, key, stream, lib.ha_flash_attention_2d, *ptrs, *sq, *sk, *sv, b, heads, n, d, h, w,
+               d**-0.5, route=route)
     return o[0] if flat else o
 
 
 flash_attention_2d.launches = 0
+flash_attention_2d.routes = dict.fromkeys(("resident", "global", "general"), 0)
 flash_attention_2d.trace = None
 
 
@@ -262,17 +311,23 @@ def flash_attention(
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
     refuse_autograd("flash_attention", q, k, v)
-    if d != HEAD_DIM:
-        raise ValueError(f"head dim {d}: K2 takes {HEAD_DIM}")
-    entry = {"resident": "ha_flash_attention_resident", "long": "ha_flash_attention_long"}[k2_route(t, causal)]
-    (q, sq), (k, sk), (v, sv) = strided_inputs(q, k, v)
+    route = k2_route(t, causal, d, q.dtype)
+    _check_heads(b * h, route)
+    (q, sq), (k, sk), (v, sv) = strided_inputs(q, k, v, route)
     o = attention_output(b, h, t, d, q.dtype, q.device)
-    launch(
-        flash_attention, (b, h, t, causal), torch.cuda.current_stream(q.device), getattr(LIB.load(), entry),
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *sq, *sk, *sv, b, h, t, d, int(causal), d**-0.5,
-    )
+    lib, stream = LIB.load(), torch.cuda.current_stream(q.device)
+    key = (b, h, t, d, causal, TYPE_NAMES[q.dtype])
+    if route == "general":
+        launch(flash_attention, key, stream, lib.ha_flash_attention_general, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               None, None, o.data_ptr(), *sq, *sk, *sv, b, h, t, d, 0, 0, int(causal), int(q.dtype == torch.bfloat16),
+               d**-0.5, route=route)
+    else:
+        entry = lib.ha_flash_attention_resident if route == "resident" else lib.ha_flash_attention_long
+        launch(flash_attention, key, stream, entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *sq, *sk,
+               *sv, b, h, t, d, int(causal), d**-0.5, route=route)
     return o
 
 
 flash_attention.launches = 0
+flash_attention.routes = dict.fromkeys(("resident", "long", "general"), 0)
 flash_attention.trace = None

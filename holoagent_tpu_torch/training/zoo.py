@@ -97,7 +97,8 @@ def load_params(path: Path) -> dict:
 
 def clip_from_tree(tree: dict, device: DeviceLike = None) -> CLIPParams:
     """A reference CLIP tree (``init_clip``'s, with ``logit_scale``) -> the
-    fixture towers, built for ``impl="xla"`` (head dim 16: no kernel route)."""
+    fixture towers, built for ``impl="xla"`` (the plain attention the
+    reference's training and accuracy rows run them on)."""
     cv = clip_mod.VARIANTS[CLIP_VARIANT]
     dev = resolve(device)
     visual = bridge.clip_from_jax(tree, cv, device=dev, impl="xla")

@@ -57,9 +57,11 @@ ALLOWED = {
 # pl.pallas_call) -> (the port's CUDA source, the C entries its wrapper of
 # the same name launches).
 KERNELS = {
-    ("ops/flash_attention.py", "flash_attention_2d"): ("csrc/flash_attention.cu", ("ha_flash_attention_2d",)),
+    ("ops/flash_attention.py", "flash_attention_2d"): (
+        "csrc/flash_attention.cu", ("ha_flash_attention_2d", "ha_flash_attention_general")),
     ("ops/flash_attention.py", "flash_attention"): (
-        "csrc/flash_attention.cu", ("ha_flash_attention_resident", "ha_flash_attention_long")),
+        "csrc/flash_attention.cu",
+        ("ha_flash_attention_resident", "ha_flash_attention_long", "ha_flash_attention_general")),
     ("ops/quant_matmul.py", "quant_matmul"): ("csrc/quant_matmul.cu", ("ha_quant_matmul",)),
 }
 

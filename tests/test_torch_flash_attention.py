@@ -251,7 +251,11 @@ def test_k1_routes_on_the_kernels_limits():
 
 @pytest.mark.parametrize("grid", [(32, 32), (20, 20), (1, 300)], ids=["global_32_wide", "global_20_wide", "hw_sum"])
 def test_k1_route_raises_for_grids_no_kernel_takes(grid):
-    """No grid goes silently to the plain version on the card: a long grid
-    that is not 64 wide, or a short one with h + w past RES_HW_MAX, raises."""
-    with pytest.raises(ValueError, match="K1"):
-        tfa.k1_route(*grid)
+    """No grid goes to the plain version on the card: a long grid that is
+    not 64 wide, or a short one with h + w past RES_HW_MAX, which neither
+    tensor-core kernel takes, goes to the general kernel, at every head
+    dim up to GENERAL_D_MAX; above it the route raises."""
+    for d in (64, 80, 32):
+        assert tfa.k1_route(*grid, d) == "general"
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.k1_route(*grid, tfa.GENERAL_D_MAX + 8)

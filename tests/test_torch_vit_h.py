@@ -9,9 +9,10 @@ heads) on the CPU.
   version on CPU tensors); 2e-3 in float32, 0.05 in bf16; and the W8A8
   encoder (``quantize_sam``) against the JAX int8 encoder at the same
   tolerances (tests/test_torch_quant.py::test_sam_q8_encoder's setting).
-- Routing: ``k1_route`` and the wrapper take head dims 64 and 80 and raise
-  on 72; K2 stays at 64; the resident kernel's shared-memory budget per
-  head dim is the source's; vit_h's qkv views are read in place.
+- Routing: ``k1_route`` and the wrapper send bf16 at head dims 64 and 80
+  to the tensor-core kernels and 72 to the general kernel; K2 takes 80 too;
+  the resident kernel's shared-memory budget per head dim is the source's;
+  vit_h's qkv views are read in place.
 """
 
 
@@ -99,30 +100,28 @@ def test_sam_hd80_q8_encoder_matches_reference(rng, dtype):
 
 @pytest.mark.parametrize("d", [64, 80, 72])
 def test_k1_route_takes_head_dims_64_and_80(d):
-    """Both K1 routes take head dims 64 and 80 (the kernel's two
-    instantiations); 72 raises."""
+    """Both tensor-core K1 routes take head dims 64 and 80 (the kernels' two
+    instantiations); 72 goes to the general kernel on either grid."""
     if d == 72:
         for grid in ((64, 64), (14, 14)):
-            with pytest.raises(ValueError, match="head dim 72"):
-                tfa.k1_route(*grid, d)
+            assert tfa.k1_route(*grid, d) == "general"
         return
     assert tfa.k1_route(64, 64, d) == "global" and tfa.k1_route(14, 14, d) == "resident"
 
 
 @pytest.mark.parametrize("d", [64, 80, 72])
 def test_k1_wrapper_head_dims_off_the_cpu(d):
-    """A tensor off the CPU never takes the plain version: at head dim 72
-    the wrapper raises on the head dim; at 64 and 80 it passes that check
-    and raises only because these (meta) tensors are not on the card.  K2
-    raises at 80: its kernels take 64."""
+    """A tensor off the CPU never takes the plain version: at head dims 64,
+    80 and 72 the wrapper passes every check of the shape and raises only
+    because these (meta) tensors are not on the card.  K2 takes 80 too."""
     g, bh = 14, 2
     q, k, v = (torch.empty(bh, g * g, d, dtype=torch.bfloat16, device="meta") for _ in range(3))
     bias = torch.empty(bh, g * g, g, dtype=torch.float32, device="meta")
-    match = "head dim 72" if d == 72 else "CUDA device"
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(ValueError, match="CUDA device"):
         tfa.flash_attention_2d(q, k, v, bias, bias, (g, g))
     if d == 80:
-        with pytest.raises(ValueError, match="K2 takes 64"):
+        assert tfa.k2_route(g * g, False, d) == "resident"
+        with pytest.raises(ValueError, match="CUDA device"):
             tfa.flash_attention(q[None], k[None], v[None])
 
 
