@@ -25,11 +25,14 @@ Phases (any failure exits non-zero, with no result line):
      77 tokens, causal, the resident route); its prefill case a vlm-base
      prefill layer (4 prompts, 16 heads, 1024 tokens, causal, the long
      route); its head-dim-80 cases CLIP ViT-H-14's crop stack (resident)
-     and a long one.  The general route's cases (float32 at head dims 16,
-     32 and 64, K1 at 32 on the reference's 16 x 16 and 32 x 32 grids, bf16
-     at head dims no tensor-core kernel is built for) are held within 2e-3
-     absolute plus 2e-3 relative in float32, each rejecting the same
-     mutants;
+     and a long one.  The general route's cases (GENERAL_CASES: G1 in bf16
+     at head dims no tensor-core kernel is built for, 40-byte rows among
+     them; G2 in float32 at head dims 16, 18, 32 and 64, K1 at 32 on the
+     reference's 16 x 16 and 32 x 32 grids and SAM vit_b's float32 global
+     layer and windows) are held in float32 within 2e-3 absolute plus 2e-3
+     relative and within 1e-5 of max|ref|, each rejecting the same mutants
+     and a plain version with single TF32 products, and in bf16 as the
+     tensor-core kernels are;
   4. towers: at full width, hold the SAM and CLIP encoders through the
      kernels against the same encoders through the plain versions, in bf16
      and as W8A8 towers (CLIP in both qmm modes), the CLIP ViT-L/14 text
@@ -162,8 +165,12 @@ Phases (any failure exits non-zero, with no result line):
      extraction; (y3) CLIP ViT-B-32 and SAM vit_l, each in the Mapper; (y4)
      apps.serving_bench.run at vlm-base as (h); (y5) the ScanNet and iPhone
      layouts written by dataloader/export.py, read back through the port's
-     loaders into build_map.run.  A [time] line after each phase says when
-     it ended.  Per-stage ms, frames/s or ms/keyframe, peak memory; the
+     loaders into build_map.run; (z) the float32 production Mapper:
+     config/synthetic_tpu_3room.yaml with models.clip.dtype float32 (SAM
+     vit_b and CLIP ViT-L/14 in float32 from load_models), Mapper.run +
+     finalize with every K1 and K2 launch on the general route (G2), its
+     keyframe features against the plain extraction's on the card.  A
+     [time] line after each phase says when it ended.  Per-stage ms, frames/s or ms/keyframe, peak memory; the
      kernels' launch counts, by route for the attention kernels, and their
      device time inside each run.  Every K1, K2 and K3 shape a path launched
      that no case of phase 3 held gets its own case before the kernels
@@ -247,11 +254,14 @@ from holoagent_tpu_torch.utils.labels import DEFAULT_ROOM_TYPES, SCANNET_LABELS_
 from holoagent_tpu_torch.utils import tracing  # noqa: E402
 from holoagent_tpu_torch.utils.timing import StageTimer  # noqa: E402
 
-# H100 SXM published peaks (dense tensor cores: bf16, int8; float32 on the
-# CUDA cores, outside the tensor cores; HBM3)
+# H100 SXM published peaks (dense tensor cores: bf16, int8, TF32; HBM3).
+# The general route's float32 kernel (G2) takes each product as three TF32
+# products (3xTF32), so its bound is a float32 operation at a third of the
+# TF32 rate.
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
-PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_F32_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12
 # Kernel vs plain version.  Both take bf16 inputs, accumulate in f32 and
 # round the output to bf16; they differ by where the probabilities are
@@ -274,6 +284,12 @@ REL_RMS_TOL = 2.0**-7
 # it is held as the tensor-core kernels are (the output's own rounding is
 # 2^-8 relative).
 F32_ATOL = F32_RTOL = 2e-3
+# and to float32's own precision: max|out - ref| <= 1e-5 max|ref|.  The
+# float32 kernel takes its products as 3xTF32 (relative error about 2^-21 a
+# product, float32 sums); a kernel that took them as one TF32 product (about
+# 2^-11) fails it by more than an order of magnitude, and each float32 case
+# must reject such a plain version (q, k, v and P rounded to TF32).
+F32_PREC = 1e-5
 # K3 vs plain version: the kernel does the plain version's arithmetic
 # operation for operation (the same f32 row scale, IEEE division, rounding
 # half to even, an exact integer sum, and the epilogue's three roundings with
@@ -388,13 +404,14 @@ def agreement(out, ref, f32: bool = False) -> dict:
     a = dict(max_abs_err=d.abs().max().item(), tol=MAX_ERR_OF_MAX * ref_max, ref_max=ref_max,
              ref_rms=ref_rms, rel_rms_err=d.pow(2).mean().sqrt().item() / ref_rms)
     if f32:
-        a.update(tol=F32_ATOL, close=(d.abs() / (F32_ATOL + F32_RTOL * r.abs())).max().item())
+        a.update(tol=F32_ATOL, close=(d.abs() / (F32_ATOL + F32_RTOL * r.abs())).max().item(),
+                 prec=a["max_abs_err"] / ref_max)
     return a
 
 
 def agrees(a: dict) -> bool:
     if "close" in a:
-        return a["close"] <= 1.0
+        return a["close"] <= 1.0 and a["prec"] <= F32_PREC
     return a["max_abs_err"] <= a["tol"] and a["rel_rms_err"] <= REL_RMS_TOL
 
 
@@ -405,7 +422,7 @@ def hold(name: str, out, ref, mutants, f32: bool = False) -> dict:
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
     a = agreement(out, ref, f32)
-    gate = (f"|err| <= {F32_ATOL} + {F32_RTOL} |ref|" if f32
+    gate = (f"|err| <= {F32_ATOL} + {F32_RTOL} |ref| and max|err| <= {F32_PREC} max|ref|" if f32
             else f"max_abs_err <= tol, rel_rms_err <= {REL_RMS_TOL}")
     check(agrees(a), f"{name}: {a} exceeds {gate}")
     for what, bad in mutants:
@@ -413,33 +430,69 @@ def hold(name: str, out, ref, mutants, f32: bool = False) -> dict:
         check(not agrees(m), f"{name}: the test would pass a plain version with {what}: {m}")
         log(f"[kernel] {name}: rejects a plain version with {what}: err {m['max_abs_err']:.3e} "
             f"(tol {m['tol']:.3e}), rel rms err {m['rel_rms_err']:.3e}"
-            + (f", err / (atol + rtol |ref|) {m['close']:.3e}" if f32 else ""))
+            + (f", err / (atol + rtol |ref|) {m['close']:.3e}, max|err| / max|ref| {m['prec']:.3e}" if f32 else ""))
     return a
 
 
-def attention_plan(kernel: str, route: str, bh: int, n: int, hw: int = 0, causal: bool = False, d: int = 64) -> dict:
-    """The launch plan of an attention route: the resident kernel's (with
-    its blocks per SM and what limits them), the global kernel's, or the
-    general kernel's grid."""
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 `x` rounded to TF32 (10 mantissa bits, to nearest, ties away
+    from zero: cvt.rna.tf32.f32) by bit mask."""
+    i = x.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_ref(q, k, v, bias=None, causal=False):
+    """The plain float32 attention with q, k, v and P rounded to TF32: what a
+    kernel taking each product as a single TF32 product computes (a mutant
+    the float32 precision gate must reject).  `bias`: K1's (bias_h, bias_w,
+    (h, w))."""
+    t, d = q.shape[-2], q.shape[-1]
+    s = torch.matmul(tf32(q), tf32(k).transpose(-1, -2)) * d**-0.5
+    if bias is not None:
+        bias_h, bias_w, (h, w) = bias
+        s = (s.reshape(-1, t, h, w) + bias_h[..., :, None] + bias_w[..., None, :]).reshape(s.shape)
+    if causal:
+        idx = torch.arange(t, device=q.device)
+        s = s.masked_fill(idx[None, :] > idx[:, None], fa.NEG_INF)
+    return torch.matmul(tf32(torch.softmax(s, dim=-1)), tf32(v))
+
+
+def attention_plan(kernel: str, route: str, bh: int, n: int, grid_hw=None, causal: bool = False, d: int = 64,
+                   dtype=torch.bfloat16) -> dict:
+    """The launch plan of an attention route: the resident kernel's or the
+    general kernels' (with the blocks per SM and what limits them), or the
+    global kernel's.  `grid_hw`: K1's grid."""
     if route == "resident":
-        return resident_plan_report(fa.resident_plan(bh, n, hw, causal=causal, d=d), bh)
+        return resident_plan_report(fa.resident_plan(bh, n, sum(grid_hw or (0,)), causal=causal, d=d), bh)
     if route == "general":
-        return dict(fa.general_plan(bh, n), kernel="general (CUDA cores)")
+        p = fa.general_plan(bh, n, d, dtype, grid_hw=grid_hw, causal=causal)
+        grid = fa.general_grid(bh, n, d, dtype)
+        check(all(p[f] == v for f, v in grid.items()), f"general_plan {p} against general_grid {grid}")
+        name = "G1 (bf16, mma.sync)" if dtype == torch.bfloat16 else "G2 (float32, 3xTF32 mma.sync)"
+        return resident_plan_report(p, bh, name)
     p = fa.global_plan(bh, n, rel_pos=kernel == "flash_attention_2d", d=d)
     bias = "" if kernel == "flash_attention_2d" else ", no bias"
     return dict(p, kernel=f"global (TMA + wgmma{bias})", waves=p["grid"] / (p["blocks_per_sm"] * p["sms"]))
 
 
+def k1_inputs(b, heads, g, gen, d=64, dtype=torch.bfloat16):
+    """K1's inputs on a g x g grid: q, k, v as the (B, heads, N, D) views of
+    one (B, N, 3C) projection that _attention_2d makes, bias (B*heads, N, g)
+    f32."""
+    n = g * g
+    qkv = torch.randn(b, n, 3 * heads * d, generator=gen).to("cuda", dtype)
+    q, k, v = qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
+    bias_h = (0.5 * torch.randn(b * heads, n, g, generator=gen)).cuda()
+    bias_w = (0.5 * torch.randn(b * heads, n, g, generator=gen)).cuda()
+    return q, k, v, bias_h, bias_w
+
+
 def k1_case(name, b, heads, g, gen, d=64, dtype=torch.bfloat16):
-    """One K1 shape: q, k, v as the (B, heads, N, D) views of one (B, N, 3C)
-    projection that _attention_2d makes, bias (B*heads, N, g) f32."""
+    """One K1 shape (k1_inputs)."""
     n = g * g
     bh = b * heads
     f32 = dtype == torch.float32
-    qkv = torch.randn(b, n, 3 * heads * d, generator=gen).to("cuda", dtype)
-    q, k, v = qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
-    bias_h = (0.5 * torch.randn(bh, n, g, generator=gen)).cuda()
-    bias_w = (0.5 * torch.randn(bh, n, g, generator=gen)).cuda()
+    q, k, v, bias_h, bias_w = k1_inputs(b, heads, g, gen, d, dtype)
     route = fa.k1_route(g, g, d, dtype)
     out = fa.flash_attention_2d(q, k, v, bias_h, bias_w, (g, g))
     ref = fa.flash_attention_2d_ref(q, k, v, bias_h, bias_w, (g, g))
@@ -447,12 +500,15 @@ def k1_case(name, b, heads, g, gen, d=64, dtype=torch.bfloat16):
     no_row0[..., 0] = fa.NEG_INF  # the keys of grid row 0: half a 128-key tile at g=64
     no_bias_h[0, :64] = 0.0
     no_bias_w[0, :64] = 0.0
-    res = hold(name, out, ref, [
+    mutants = [
         ("the keys of grid row 0 dropped", fa.flash_attention_2d_ref(q, k, v, no_row0, bias_w, (g, g))),
         ("bias_h dropped on one query tile", fa.flash_attention_2d_ref(q, k, v, no_bias_h, bias_w, (g, g))),
         ("bias_w dropped on one query tile", fa.flash_attention_2d_ref(q, k, v, bias_h, no_bias_w, (g, g))),
-    ], f32=f32)
-    res["plan"] = attention_plan("flash_attention_2d", route, bh, n, 2 * g, d=d)
+    ]
+    if f32:
+        mutants.append(("single TF32 products", tf32_ref(q, k, v, (bias_h, bias_w, (g, g)))))
+    res = hold(name, out, ref, mutants, f32=f32)
+    res["plan"] = attention_plan("flash_attention_2d", route, bh, n, (g, g), d=d, dtype=dtype)
     mask = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(b, heads, n, n).to(dtype)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     res.update(
@@ -464,10 +520,19 @@ def k1_case(name, b, heads, g, gen, d=64, dtype=torch.bfloat16):
     )
     flops = 4.0 * n * n * d * bh
     nbytes = 4 * bh * n * d * q.element_size() + bh * n * 2 * g * 4
-    res["bound_ms"], res["bound_by"] = bound(flops, nbytes, PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+    res["bound_ms"], res["bound_by"] = bound(flops, nbytes, PEAK_F32_3XTF32_FLOPS if f32 else PEAK_BF16_FLOPS)
     res["ratio_to_library"] = res["ms"] / res["library_ms"]
     del mask
     return res
+
+
+def k2_inputs(b, h, t, gen, packed=False, d=64, dtype=torch.bfloat16):
+    """K2's q, k, v (B, H, T, D): with `packed` the views of one (B, T,
+    3*H*D) projection that _attend makes, else contiguous tensors."""
+    if packed:
+        qkv = torch.randn(b, t, 3 * h * d, generator=gen).to("cuda", dtype)
+        return tuple(z.reshape(b, t, h, d).transpose(1, 2) for z in qkv.split(h * d, dim=-1))
+    return tuple(torch.randn(b, h, t, d, generator=gen).to("cuda", dtype) for _ in range(3))
 
 
 def k2_case(name, b, h, t, causal, gen, packed=False, d=64, dtype=torch.bfloat16):
@@ -476,11 +541,7 @@ def k2_case(name, b, h, t, causal, gen, packed=False, d=64, dtype=torch.bfloat16
     stride 3*H*D, head stride D), the layout the towers launch, and the call
     must allocate nothing but its output; else contiguous tensors."""
     f32 = dtype == torch.float32
-    if packed:
-        qkv = torch.randn(b, t, 3 * h * d, generator=gen).to("cuda", dtype)
-        q, k, v = (z.reshape(b, t, h, d).transpose(1, 2) for z in qkv.split(h * d, dim=-1))
-    else:
-        q, k, v = (torch.randn(b, h, t, d, generator=gen).to("cuda", dtype) for _ in range(3))
+    q, k, v = k2_inputs(b, h, t, gen, packed, d, dtype)
     route = fa.k2_route(t, causal, d, dtype)
     out = fa.flash_attention(q, k, v, causal=causal)
     ref = fa.flash_attention_ref(q, k, v, causal=causal)
@@ -492,6 +553,8 @@ def k2_case(name, b, h, t, causal, gen, packed=False, d=64, dtype=torch.bfloat16
     else:
         mutants.append(("the key mask shifted by one (key T - 1 dropped)", fa.flash_attention_ref(q, k[:, :, :-1],
                                                                                                  v[:, :, :-1])))
+    if f32:
+        mutants.append(("single TF32 products", tf32_ref(q, k, v, causal=causal)))
     res = hold(name, out, ref, mutants, f32=f32)
     if packed:
         torch.cuda.synchronize()
@@ -503,7 +566,7 @@ def k2_case(name, b, h, t, causal, gen, packed=False, d=64, dtype=torch.bfloat16
         del again
         check(res["alloc_bytes"] == res["out_bytes"], f"{name}: the call allocated {res['alloc_bytes']} bytes at its "
               f"peak, its output is {res['out_bytes']}: the wrapper copied q, k or v")
-    res["plan"] = attention_plan("flash_attention", route, b * h, t, causal=causal, d=d)
+    res["plan"] = attention_plan("flash_attention", route, b * h, t, causal=causal, d=d, dtype=dtype)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     res.update(
         kernel="flash_attention", key=(b, h, t, d, causal, TYPE_NAMES[dtype]), name=name, route=route,
@@ -515,18 +578,18 @@ def k2_case(name, b, h, t, causal, gen, packed=False, d=64, dtype=torch.bfloat16
     )
     pairs = t * (t + 1) / 2 if causal else t * t  # key/query pairs this input needs
     res["bound_ms"], res["bound_by"] = bound(4.0 * pairs * d * b * h, 4 * b * h * t * d * q.element_size(),
-                                             PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+                                             PEAK_F32_3XTF32_FLOPS if f32 else PEAK_BF16_FLOPS)
     res["ratio_to_library"] = res["ms"] / res["library_ms"]
     return res
 
 
-def resident_plan_report(p, bh) -> dict:
-    """The resident kernel's plan for `bh` heads with its grid, waves and
-    what limits its blocks an SM."""
+def resident_plan_report(p, bh, kernel="resident") -> dict:
+    """A resident or general kernel's plan for `bh` heads with its grid,
+    waves and what limits its blocks an SM."""
     grid = p["blocks_per_head"] * bh
     regs, smem = p["blocks_by_regs"], p["blocks_by_smem"]
     limit = "registers and shared memory alike" if regs == smem else "registers" if regs < smem else "shared memory"
-    return dict(p, kernel="resident", grid=grid, waves=grid / (p["blocks_per_sm"] * p["sms"]), limit=limit)
+    return dict(p, kernel=kernel, grid=grid, waves=grid / (p["blocks_per_sm"] * p["sms"]), limit=limit)
 
 
 def causal_ref_shifted(q, k, v):
@@ -661,32 +724,54 @@ def kernel_phases():
     # tier-16 crop stack on the resident route, and the long route
     cases.append(k2_case("k2_vit_h14_tier16", 33, 16, 257, False, gen, packed=True, d=80))
     cases.append(k2_case("k2_d80_t600", 4, 16, 600, False, gen, packed=True, d=80))
-    # the general route: float32 at head dims 16, 32 and 64, causal or not
-    # (a float32 ViT-L/14 crop stack among them), the reference's K1 test
-    # shapes (head dim 32, 16 x 16 and 32 x 32 grids), and bf16 where no
-    # tensor-core kernel is instantiated (head dim 16: config/synthetic.yaml's
-    # text batch, 256 prompts, 4 heads, the text tower computing in bf16 as
-    # the reference's does; 32; 80 with causal)
-    f32 = torch.float32
-    cases.append(k2_case("k2_text_tiny_causal_t77", 256, 4, 77, True, gen, packed=True, d=16))
-    cases.append(k2_case("k2_f32_d16_causal_t77", 64, 4, 77, True, gen, packed=True, d=16, dtype=f32))
-    cases.append(k2_case("k2_f32_d16_t257", 8, 4, 257, False, gen, packed=True, d=16, dtype=f32))
-    cases.append(k2_case("k2_f32_d32_causal_t384", 4, 16, 384, True, gen, d=32, dtype=f32))
-    cases.append(k2_case("k2_f32_d32_t600", 4, 16, 600, False, gen, packed=True, d=32, dtype=f32))
-    cases.append(k2_case("k2_f32_d64_tier16", 33, 16, 257, False, gen, packed=True, dtype=f32))
-    cases.append(k2_case("k2_f32_d64_causal_t600", 4, 16, 600, True, gen, packed=True, dtype=f32))
-    cases.append(k2_case("k2_bf16_d32_t257", 8, 2, 257, False, gen, packed=True, d=32))
-    cases.append(k2_case("k2_bf16_d80_causal_t257", 4, 16, 257, True, gen, packed=True, d=80))
-    cases.append(k1_case("k1_f32_d32_g16", 1, 3, 16, gen, d=32, dtype=f32))
-    cases.append(k1_case("k1_f32_d32_g32", 1, 3, 32, gen, d=32, dtype=f32))
+    cases += [general_case(row, gen) for row in GENERAL_CASES]
     for c in cases:
         log_attention_case(c)
     cases += k3_phase()
     return {c["name"]: c for c in cases}
 
 
+# The general route's cases: (name, kernel, B, heads, T or the grid's side,
+# head dim, causal, dtype, packed).  bf16 (G1) where no tensor-core kernel
+# is instantiated: head dim 16 (config/synthetic.yaml's text batch, 256
+# prompts, 4 heads, the text tower computing in bf16 as the reference's
+# does), 32, 80 with causal, K1 at 32, and head dim 20 (40-byte rows: the
+# staging without 16-byte copies).  float32 (G2) at head dims 16, 32 and 64,
+# causal or not (a float32 ViT-L/14 crop stack among them), 18 (72-byte
+# rows), the reference's K1 test shapes (head dim 32, 16 x 16 and 32 x 32
+# grids) and SAM vit_b's float32 global layer and windows.
+BF16, F32 = torch.bfloat16, torch.float32
+GENERAL_CASES = (
+    ("k2_text_tiny_causal_t77", "k2", 256, 4, 77, 16, True, BF16, True),
+    ("k2_bf16_d32_t257", "k2", 8, 2, 257, 32, False, BF16, True),
+    ("k2_bf16_d80_causal_t257", "k2", 4, 16, 257, 80, True, BF16, True),
+    ("k2_bf16_d20_causal_t77", "k2", 64, 4, 77, 20, True, BF16, True),
+    ("k1_bf16_d32_g16", "k1", 1, 3, 16, 32, False, BF16, True),
+    ("k2_f32_d16_causal_t77", "k2", 64, 4, 77, 16, True, F32, True),
+    ("k2_f32_d16_t257", "k2", 8, 4, 257, 16, False, F32, True),
+    ("k2_f32_d32_causal_t384", "k2", 4, 16, 384, 32, True, F32, False),
+    ("k2_f32_d32_t600", "k2", 4, 16, 600, 32, False, F32, True),
+    ("k2_f32_d64_tier16", "k2", 33, 16, 257, 64, False, F32, True),
+    ("k2_f32_d64_causal_t600", "k2", 4, 16, 600, 64, True, F32, True),
+    ("k2_f32_d18_causal_t77", "k2", 64, 4, 77, 18, True, F32, True),
+    ("k1_f32_d32_g16", "k1", 1, 3, 16, 32, False, F32, True),
+    ("k1_f32_d32_g32", "k1", 1, 3, 32, 32, False, F32, True),
+    ("k1_f32_sam_global", "k1", 1, 12, 64, 64, False, F32, True),
+    ("k1_f32_sam_window", "k1", 25, 12, 14, 64, False, F32, True),
+)
+
+
+def general_case(row, gen):
+    """One GENERAL_CASES row through k1_case or k2_case."""
+    name, kernel, b, h, t, d, causal, dtype, packed = row
+    if kernel == "k1":
+        return k1_case(name, b, h, t, gen, d=d, dtype=dtype)
+    return k2_case(name, b, h, t, causal, gen, packed=packed, d=d, dtype=dtype)
+
+
 def log_attention_case(c) -> None:
-    gate = (f"err / (atol + rtol |ref|) {c['close']:.3e}, limit 1" if "close" in c else
+    gate = (f"err / (atol + rtol |ref|) {c['close']:.3e}, limit 1; max|err| / max|ref| {c['prec']:.3e}, limit "
+            f"{F32_PREC:.0e}" if "close" in c else
             f"rel rms err {c['rel_rms_err']:.3e} tol {REL_RMS_TOL:.3e}")
     log(f"[kernel] {c['name']:23s} {c['shape']:49s} err {c['max_abs_err']:.3e} (tol {c['tol']:.3e}, "
         f"max|ref| {c['ref_max']:.3e}, rms(ref) {c['ref_rms']:.3e}, {gate}) route {c['route']} "
@@ -901,6 +986,16 @@ def report(tag, nf, wall, timer, launches, in_path, peak, expect):
         check(launches[name] == per * nf, f"{tag}: {name} launches {launches[name]} != {per} x {nf}")
 
 
+def mapping_frames():
+    """The main paths' walk: FRAMES posed 640x480 frames of the three-room
+    scene, the keyframes rendered up front (data set-up is not mapping
+    time)."""
+    ds = SyntheticDataset(SyntheticScene.three_room(SEED), num_frames=FRAMES, hw=(480, 640), seed=SEED)
+    for i in range(0, len(ds), CONFIG["pipeline"]["skip_frames"]):
+        ds[i]
+    return ds
+
+
 def main_path(clip, sam, ds, cfg, tag, expect):
     """Mapper.run + finalize over the keyframes, counted."""
     keyframes = list(range(0, len(ds), cfg.pipeline.skip_frames))
@@ -922,7 +1017,7 @@ def main_path(clip, sam, ds, cfg, tag, expect):
     check(bool(torch.isfinite(ms.instance_feats).all()), "non-finite instance features")
     check(bool(torch.isfinite(ms.scene.feats()[valid_rows]).all()), "non-finite scene features")
     check(bool(torch.isfinite(ms.scene.points()[valid_rows]).all()), "non-finite scene points")
-    return dict(launches=launches, in_path=in_path, nf=nf, ms=ms)
+    return dict(launches=launches, in_path=in_path, nf=nf, ms=ms, wall=wall, stages=dict(timer.ms), peak=peak)
 
 
 def extraction_path(qclip, qsam, ds, cfg, tag, expect, mapper_feats):
@@ -3570,6 +3665,58 @@ def y5_layouts(clip, sam, text, root, tag):
     return paths
 
 
+# (z): config/synthetic_tpu_3room.yaml with models.clip.dtype float32 (the
+# towers in float32; load_models builds SAM in the CLIP dtype)
+Z_CONFIG = copy.deepcopy(CONFIG)
+for _tower in ("clip", "sam"):
+    Z_CONFIG["models"][_tower]["dtype"] = "float32"
+
+
+def z_plain(models, ds):
+    """(z)'s reference: the same Mapper with the plain extraction
+    (extract_impl and extract_clip_impl "xla") on the card."""
+    d = copy.deepcopy(Z_CONFIG)
+    d["pipeline"].update(extract_impl="xla", extract_clip_impl="xla")
+    return Mapper(from_dict(d), models[0], models[1]).run(ds)
+
+
+def z_f32_mapper(ds, tag, models=None, plain=None):
+    """(z) the float32 production Mapper: config/synthetic_tpu_3room.yaml
+    field for field with models.clip.dtype float32 (SAM vit_b and CLIP
+    ViT-L/14 in float32 from load_models, random weights, tiered
+    extraction, the paired fold, 640x480, 6 keyframes): Mapper.run +
+    finalize, counted; every K1 and K2 launch on the general route (G2);
+    its keyframe features against the plain extraction's (`plain`, else
+    z_plain) within SYNTHETIC_FEATURE_ATOL, scene rows and instances equal.
+    `models`: load_models' five values, else loaded here."""
+    cfg = from_dict(Z_CONFIG)
+    models = models or load_models(cfg)
+    clip, sam = models[0], models[1]
+    check(clip.patch_w.dtype == sam.dtype == torch.float32, f"{tag}: the towers are not float32")
+    path = main_path(clip, sam, ds, cfg, tag, launches_a_keyframe(clip, sam))
+    k1r, k2r = routes_of(path["launches"], "flash_attention_2d"), routes_of(path["launches"], "flash_attention")
+    check(k1r["general"] == path["launches"]["flash_attention_2d"] > 0
+          and k2r["general"] == path["launches"]["flash_attention"] > 0, f"{tag}: routes K1 {k1r} K2 {k2r}")
+    plain = plain if plain is not None else z_plain(models, ds)
+    ms = path.pop("ms")
+    diff = (ms.keyframe_feats - plain.keyframe_feats).abs().max().item()
+    nf = path["nf"]
+    attn = sum(t for name in ("flash_attention_2d", "flash_attention") for _, t in path["in_path"][name].values())
+    path.update(kf_s=nf / path["wall"], attention_ms_a_keyframe=attn / nf, feature_err=diff,
+                mask_encoder_ms=path["stages"].get("mask.encoder", 0.0) / nf,
+                clip_encoder_ms=path["stages"].get("clip.encoder", 0.0) / nf)
+    log(f"[{tag}] float32 Mapper: {path['kf_s']:.3f} kf/s, attention {path['attention_ms_a_keyframe']:.4f} ms a "
+        f"keyframe in the run (K1 {k1r}, K2 {k2r}), mask.encoder {path['mask_encoder_ms']:.3f} ms and clip.encoder "
+        f"{path['clip_encoder_ms']:.3f} ms a keyframe, peak {path['peak'] / 2**30:.3f} GiB; keyframe features "
+        f"against the plain extraction's within {diff:.3e} (limit {SYNTHETIC_FEATURE_ATOL:.0e}); scene rows "
+        f"{int(ms.scene.num)} / {int(plain.scene.num)}, instances {int(ms.instances.num())} / "
+        f"{int(plain.instances.num())}")
+    check(diff <= SYNTHETIC_FEATURE_ATOL, f"{tag}: keyframe features differ from the plain extraction's by {diff:.3e}")
+    check(int(ms.scene.num) == int(plain.scene.num) and int(ms.instances.num()) == int(plain.instances.num()),
+          f"{tag}: scene rows or instances differ from the plain extraction's")
+    return path
+
+
 def y_phase(clip, sam, text, ds, tmp):
     """(y1)-(y5), each path counted; returns the paths."""
     paths = y1_vit_h14(ds, os.path.join(tmp, "y1"), "y1")
@@ -3633,15 +3780,25 @@ def path_sums(cases, paths) -> None:
 
 
 SOURCE_FA = "holoagent_tpu_torch/csrc/flash_attention.cu"
-# (wrapper, route or None for all its launches, source, the TPU kernel, main path)
+Z_PATH = "(z) float32 Mapper.run"
+# (wrapper, route ("tensor" for every route but "general", None for K3's
+# one), the dtype's trace name or None for any, the kernel, source, the TPU
+# kernel, main path): the tensor-core routes on the bf16 Mapper; the
+# general route's G2 (float32, 3xTF32) on (z) for both wrappers, its G1
+# (bf16) on (y2)'s graph path (the text batches: no path sends K1 to G1,
+# which the kernel phase holds)
 KERNELS = (
-    ("flash_attention_2d", None, SOURCE_FA, "holoagent_tpu/ops/flash_attention.py:157", "bf16"),
-    ("flash_attention", None, SOURCE_FA, "holoagent_tpu/ops/flash_attention.py:217", "bf16"),
-    ("flash_attention_2d", "general", SOURCE_FA, "holoagent_tpu/ops/flash_attention.py:157",
-     "(y2) synthetic.yaml, extraction flash: Mapper.run"),
-    ("flash_attention", "general", SOURCE_FA, "holoagent_tpu/ops/flash_attention.py:217",
+    ("flash_attention_2d", "tensor", None, "tensor cores", SOURCE_FA, "holoagent_tpu/ops/flash_attention.py:157",
+     "bf16"),
+    ("flash_attention", "tensor", None, "tensor cores", SOURCE_FA, "holoagent_tpu/ops/flash_attention.py:217", "bf16"),
+    ("flash_attention_2d", "general", "f32", "G2 g2_tf32x3_kernel", SOURCE_FA,
+     "holoagent_tpu/ops/flash_attention.py:157", Z_PATH),
+    ("flash_attention", "general", "f32", "G2 g2_tf32x3_kernel", SOURCE_FA,
+     "holoagent_tpu/ops/flash_attention.py:217", Z_PATH),
+    ("flash_attention", "general", "bf16", "G1 g1_bf16_kernel", SOURCE_FA, "holoagent_tpu/ops/flash_attention.py:217",
      "(y2) synthetic.yaml: build_map.run, load, queries"),
-    ("quant_matmul", None, "holoagent_tpu_torch/csrc/quant_matmul.cu", "holoagent_tpu/ops/quant_matmul.py:70", "w8a8"),
+    ("quant_matmul", None, None, "W8A8 GEMM", "holoagent_tpu_torch/csrc/quant_matmul.cu",
+     "holoagent_tpu/ops/quant_matmul.py:70", "w8a8"),
 )
 
 
@@ -3659,8 +3816,9 @@ def key_route(kernel, key):
 
 def kernels_line(cases, paths):
     """One entry per kernel, for its main-path run: the bf16 Mapper run for
-    K1 and K2 (the tensor-core routes), (y2)'s runs for their general route
-    (config/synthetic.yaml's float32 towers), the W8A8 Mapper run for K3.
+    K1 and K2 (the tensor-core routes), (z) for the general route's G2
+    (both wrappers, float32), (y2)'s graph path for its G1 (the bf16 text
+    batches), the W8A8 Mapper run for K3.
     `ms` is the kernel's device time inside that run (CUDA events around
     each launch).  `isolated_ms`, `plain_ms`, `library_ms` and `bound_ms`
     are the kernel phase's per-launch numbers at each launch's shape,
@@ -3671,31 +3829,41 @@ def kernels_line(cases, paths):
     a route's entry).  `cases` holds the per-launch numbers themselves."""
     by_key = {c["key"]: c for c in cases.values()}
     line = []
-    for name, route, source, replaces, main in KERNELS:
+    for name, route, dtype, kernel, source, replaces, main in KERNELS:
         for tag, path in paths.items():
             unchecked = [k for k in path["in_path"][name] if k not in by_key]
             check(not unchecked, f"{name}: the {tag} path launched shapes {unchecked} that no kernel phase held")
-        count = name if route is None else f"{name}.{route}"
-        runs = {k: r for k, r in paths[main]["in_path"][name].items() if route in (None, key_route(name, k))}
-        nf, launches = paths[main]["nf"], paths[main]["launches"][count]
-        check(launches > 0 and launches == sum(n for n, _ in runs.values()), f"{count}: not launched on its main path")
+        count = name if route in (None, "tensor") else f"{name}.{route}"
+
+        def ours(key):
+            r = key_route(name, key)
+            return (route in (None, r) or (route == "tensor" and r != "general")) and dtype in (None, key[-1])
+
+        runs = {k: r for k, r in paths[main]["in_path"][name].items() if ours(k)}
+        nf, launches, counter = paths[main]["nf"], sum(n for n, _ in runs.values()), paths[main]["launches"]
+        # the wrappers' own counts where they separate the entry's launches
+        counted_here = {None: counter[name], "tensor": counter[name] - counter.get(f"{name}.general", 0)}
+        check(launches > 0 and (dtype is not None or launches == counted_here[route]),
+              f"{count} ({kernel}): not launched on its main path")
 
         def summed(field):
             return sum(n * by_key[k][field] for k, (n, _) in runs.items())
 
         dominant = max(runs, key=lambda k: runs[k][0] * by_key[k]["bound_ms"])
         mine = [{f: v for f, v in c.items() if f not in ("key", "kernel")}
-                for c in cases.values() if c["kernel"] == name and route in (None, c.get("route"))]
+                for c in cases.values() if c["kernel"] == name and ours(c["key"])]
         in_run = sum(t for _, t in runs.values())
         line.append({
-            "name": count, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+            "name": f"{count} ({kernel})", "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": in_run, "plain_ms": summed("plain_ms"),
             "bound_ms": summed("bound_ms"), "bound_by": by_key[dominant]["bound_by"],
             "library_ms": summed("library_ms"), "isolated_ms": summed("ms"),
             "ratio_to_library": summed("ms") / summed("library_ms"),
             "per": f"the counted {main} run: {launches} launches over {nf} keyframes",
-            "launches_by_path": {tag: path["launches"][count] for tag, path in paths.items()},
+            "launches_by_path": {tag: sum(n for k, (n, _) in path["in_path"][name].items() if ours(k))
+                                 for tag, path in paths.items()},
             "cases": mine,
         })
     return {"kernels": line}
@@ -3750,9 +3918,7 @@ def main() -> int:
     hcfg = from_dict(hcfg_dict)
     sam_h = sam_mod.init_sam(sam_mod.VARIANTS["vit_h"], seed=SEED + 1, dtype=torch.bfloat16)
     qsam_h = sam_mod.quantize_sam(sam_h)
-    ds = SyntheticDataset(SyntheticScene.three_room(SEED), num_frames=FRAMES, hw=(480, 640), seed=SEED)
-    for i in range(0, len(ds), cfg.pipeline.skip_frames):
-        ds[i]  # render up front: data set-up is not mapping time
+    ds = mapping_frames()
     log(f"[setup] bf16 and W8A8 towers (SAM vit_b and vit_h) + {len(ds)} rendered frames in "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -3880,6 +4046,9 @@ def main() -> int:
         stamp("(w) W8A8 text tower")
         torch.cuda.empty_cache()
         paths.update(y_phase(clip, sam, text, ds, os.path.join(tmp, "y")))
+        paths[Z_PATH] = z_f32_mapper(ds, "z")
+        torch.cuda.empty_cache()
+        stamp("(z) float32 Mapper")
         X_SHARED.update(clip=clip, sam=sam, text=text, ds=ds)
         torch.cuda.empty_cache()
         x = launch.spawn(x_rank, torch.cuda.device_count(), "cuda", args=(os.path.join(tmp, "x"),))[0]

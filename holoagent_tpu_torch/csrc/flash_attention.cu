@@ -7,7 +7,7 @@
 //   * K2  flash_attention (_flash_kernel): plain blockwise attention over
 //     (B, H, T, D), optionally causal (key <= query: every row keeps its
 //     diagonal), keys at or past T masked.
-// Three kernels, instantiated per route:
+// Four kernels, instantiated per route:
 //   - global_kernel<REL_POS, D> (TMA + wgmma, warp-specialised): with the
 //     bias, K1 for N > T_MAX (the SAM global layers, a 64 x 64 grid);
 //     without it, K2 for T > T_MAX, causal or not (long prefills);
@@ -16,7 +16,8 @@
 //     non-causal (every CLIP visual layer, T = 257 for the /14 towers, 50
 //     for ViT-B-32) or causal (the CLIP text tower, T = 77).  The bias and
 //     the causal mask never meet;
-//   - general_kernel<T, REL_POS, CAUSAL, DM>: everything else (below).
+//   - g1_bf16_kernel and g2_tf32x3_kernel<REL_POS, CAUSAL, DM, ALIGNED>
+//     (G1, G2): everything else, bf16 and float32 (below).
 // The two tensor-core kernels take bf16 and read q, k and v where they lie
 // (any batch, head and token strides that are multiples of 16 bytes, last
 // dim contiguous, such as the views of a fused qkv projection), write the
@@ -142,26 +143,62 @@
 //     and 64 accumulator registers a thread instead of 40) and need 225 KB
 //     of shared memory for 3 stages; the split form does no wasted work.
 //
-// The general kernel (every other input: float32, a head dim other than 64
-// and 80, a causal layer at 80, a K1 grid neither tensor-core kernel takes,
-// such as the tiny towers' and the fixture towers').  It covers both TPU
-// kernels, _flash_kernel and _flash2d_kernel, for the inputs the reference
-// takes and the kernels above do not: any float32 or bf16 input, any head
-// dim up to GEN_D_MAX, any T, any h x w grid.  It is the correctness route,
-// not the production route: no configuration's production path reaches it
-// at bf16, and the port's float32 matmuls keep TF32 off, so it runs on the
-// CUDA cores (FFMA), with float32 scores and sums.  A block of 256 threads
-// owns 64 queries of one head, four threads a query, each with a quarter of
-// the head dims (float4 groups); K and V tiles of 64 keys (32 above a head
-// dim of 64) are staged in shared memory as float32, zero-padded to the head
-// dim's bucket (16, 32, 64 or 128), and read back as broadcast float4s.  The
-// online softmax runs in log2 units over chunks of 16 keys, one rescale a
-// chunk.  q, k and v are read by element at any strides (last dim
-// contiguous), so no layout is copied.  Its bound on the H100 is the larger
-// of 4 T^2 D operations a head (half the pairs with causal) at the 67
-// TFLOP/s float32 non-tensor peak (989 TFLOP/s for bf16 inputs, whose
-// products a tensor-core kernel could take) and the bytes of q, k, v and o
-// at 3.35 TB/s; it runs far from it, and a later PR may redesign it.
+// The general kernels (every other input: float32, a head dim other than
+// 64 and 80, a causal layer at 80, a K1 grid neither tensor-core kernel
+// takes, such as the tiny towers' and the fixture towers').  They cover both
+// TPU kernels, _flash_kernel and _flash2d_kernel, for the inputs the
+// reference takes and the kernels above do not: bf16 (G1) or float32 (G2),
+// any head dim up to GEN_D_MAX, any T, any h x w grid, any strides with a
+// contiguous last dim.  Production reaches them with float32 towers
+// (config/synthetic.yaml's test-tiny towers; config/synthetic_tpu_3room.yaml
+// with models.clip.dtype float32: SAM vit_b's global layers, H = 12, N =
+// 4096, D = 64, 51.5 GFLOP a layer, and every CLIP ViT-L/14 layer) and with
+// the tiny text tower's bf16 batches (D = 16).
+//   - What bounds them.  float32 inputs keep float32's accuracy (the port
+//     keeps TF32 off: a single TF32 product keeps about 3 decimal digits),
+//     so G2 takes each product as three TF32 products (3xTF32: x = hi + lo,
+//     hi = tf32(x), lo = x - hi, a b ~ hi.hi + hi.lo + lo.hi, about 2^-21
+//     a product) on mma.sync m16n8k8: at most 495 / 3 = 165 TF/s of
+//     float32 work, where FFMA on the CUDA cores gives 67.  SAM's float32
+//     global layer is then bound by operations (0.31 ms); the CLIP crop
+//     stacks and the windows nearly so.  G1's bf16 shapes are small (D = 16
+//     to 80, T = 77 to 257) and bound by the bytes of q, k, v and o.
+//   - A block of 4 warps owns 64 queries of one head (GEN_BQ), a warp an
+//     m16 query tile; the head dim is padded to the next multiple of 16 (DM
+//     = 16 ... 128: D = 80 runs 5 k16 steps, not 8).  Key tiles of 64 keys
+//     (32 for float32 above DM = 64) stream through a two-stage cp.async
+//     ring, K and V in their own dtype (bf16 for G1: half the bytes of a
+//     float32 staging): tile i + 1 lands while tile i is computed, one
+//     barrier a tile.  Rows sit at a padded pitch (bf16 DM + 8, an odd
+//     number of 16-byte chunks; float32 DM + 4 words, 4 or 20 modulo 32), so
+//     ldmatrix (G1) and the fragments' 32-bit reads (G2) hit 32 banks.
+//   - G1: QK^T and P V by mma.sync m16n8k16 bf16 -> f32, K's B fragments by
+//     ldmatrix, V's by ldmatrix.trans, P repacked from the S accumulators
+//     into bf16 A fragments (as the tensor-core kernels round it).
+//   - G2: both products in 3xTF32, each operand split as it is read; P stays
+//     float32 and its n8 group's keys are taken in the order 2 tg, 2 tg + 1,
+//     so the S fragment is the A fragment with no shuffle (V's rows read to
+//     match).  Each tile's P V sums apart and is added to the output by one
+//     IEEE add: the tensor cores' float32 sums do not round to nearest, and
+//     over a 4096-key loop their error would pass float32's.  Q's halves sit
+//     in registers up to DM = 64, in shared memory above (registers would
+//     spill).
+//   - The online softmax runs in log2 units, one FFMA and one ex2 a score;
+//     only a tile holding the ragged key edge or, with causal, keys past a
+//     warp's first row is masked per element.  Causal: the key loop ends at
+//     the block's diagonal tile, a warp skips a tile wholly past its rows,
+//     and blocks launch heaviest query tile first.
+//   - K1's bias on any grid: a per-tile (ky, kx) table (one division a key
+//     and block), and the block's 64 rows of bias_h and bias_w staged once
+//     in shared memory (rows padded to an odd number of words) where h + w
+//     <= GEN_BIAS_HW_MAX, else read through L1.
+//   - Layouts: where q, k, v start on 16 bytes and every stride is a
+//     multiple of 16 bytes (the fused projections' views at every
+//     production head dim) tiles are staged by 16-byte cp.async, a row's
+//     last chunk reading only its columns below d; otherwise (a bf16 head
+//     dim of 20: 40-byte rows) element by element.  The C entry picks the
+//     instantiation (ALIGNED) from the pointers and strides; nothing is
+//     copied.
 //
 // Left for later: a persistent tile loop and intra-warpgroup overlap of the
 // next tile's QK^T with this tile's softmax in the global kernel; wgmma in
@@ -1247,189 +1284,648 @@ int launch_global(const void* q, const void* k, const void* v, const void* bias_
 }
 
 // ---------------------------------------------------------------------------
-// The general kernel: K1 and K2 for every input the tensor-core kernels do
-// not take (float32, head dims other than 64 and 80, K1's other grids)
+// The general kernels: K1 and K2 for every input the tensor-core kernels
+// above do not take (float32, head dims other than 64 and 80, a causal
+// layer at 80, K1's other grids).  G1 (bf16) and G2 (float32) share one
+// skeleton, gen_body, and differ in their products.
 // ---------------------------------------------------------------------------
 
-constexpr int GEN_BQ = 64;               // queries a block
-constexpr int GEN_THREADS = 4 * GEN_BQ;  // a quad of threads a query
-constexpr int GEN_CHUNK = 16;            // keys a step of the online softmax
-constexpr int GEN_D_MAX = 128;           // largest head dim; ops/flash_attention.py has a copy
+constexpr int GEN_BQ = 64;                   // queries a block: four warps of 16; ops/flash_attention.py has a copy
+constexpr int GEN_WARPS = 4;
+constexpr int GEN_THREADS = GEN_WARPS * 32;
+constexpr int GEN_STAGES = 2;                // the K/V ring; ops/flash_attention.py has a copy
+constexpr int GEN_D_MAX = 128;               // largest head dim; ops/flash_attention.py has a copy
+constexpr int GEN_BIAS_HW_MAX = 128;         // largest grid_h + grid_w whose bias rows a block stages
+constexpr int GEN_GRID_MAX = 65535;          // largest grid_h or grid_w (a key's (ky, kx) is two 16-bit halves)
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// One instantiation's layout.  DM: the head dim rounded up to 16 (the
+// padding is zeros).  Rows in shared memory are PITCH elements apart: bf16
+// DM + 8 (an odd number of 16-byte chunks, so the 8 rows an ldmatrix reads
+// hit 8 groups of 4 banks), float32 DM + 4 (4 or 20 words modulo 32, so a
+// fragment's 32 lanes read 32 banks: rows g at column tg for K and Q, rows
+// 2 tg and 2 tg + 1 at column g for V).
+template <typename T, int DM>
+struct GenCfg {
+  static_assert(DM % 16 == 0 && DM >= 16 && DM <= GEN_D_MAX, "DM is a multiple of 16 up to GEN_D_MAX");
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // elements a 16-byte chunk
+  static constexpr int BK = (F32 && DM > 64) ? 32 : 64;       // keys a tile; ops/flash_attention.py has a copy
+  static constexpr int PITCH = DM + VEC;
+  static constexpr bool Q_SMEM = F32 && DM > 64;  // G2 keeps Q's TF32 halves in shared memory above 64
+  static constexpr int TILE = BK * PITCH * static_cast<int>(sizeof(T));  // bytes of a K or V tile
+  static constexpr int STAGE = 2 * TILE + BK * 4;                       // K, V and the tile's (ky, kx) table
+  static constexpr int Q_BYTES = Q_SMEM ? 2 * GEN_BQ * PITCH * 4 : 0;   // Q's hi and lo
+  // without Q_SMEM, Q is staged once in the second stage before the key loop
+  static_assert(Q_SMEM || BK * PITCH >= GEN_BQ * PITCH, "Q fits a stage's K tile");
+};
+
+// Shared memory of a general launch: the K/V ring, Q's halves (G2 above DM
+// = 64) and, for a K1 grid (grid_h, grid_w) that the block stages (grid_h +
+// grid_w <= GEN_BIAS_HW_MAX; else 0, 0), its bias rows, each padded to an
+// odd number of words (`bias_pitch`) so that the 8 rows a fragment's lanes
+// read at one column hit 8 banks.
+__host__ __device__ constexpr int bias_pitch(int n) { return n | 1; }
+template <typename T, int DM>
+__host__ __device__ constexpr size_t gen_smem(int grid_h, int grid_w) {
+  return static_cast<size_t>(GEN_STAGES) * GenCfg<T, DM>::STAGE + GenCfg<T, DM>::Q_BYTES +
+         (grid_h + grid_w ? static_cast<size_t>(GEN_BQ) * (bias_pitch(grid_h) + bias_pitch(grid_w)) * 4 : 0);
+}
+// The most a launch with staged bias rows takes: two even sides summing to
+// GEN_BIAS_HW_MAX pad to GEN_BIAS_HW_MAX + 2 words a row, as (GEN_BIAS_HW_MAX, 1) does.
+template <typename T, int DM>
+__host__ __device__ constexpr size_t gen_smem_most() {
+  return gen_smem<T, DM>(GEN_BIAS_HW_MAX, 1);
+}
+static_assert(gen_smem_most<float, GEN_D_MAX>() <= 232448, "G2's largest launch fits a block");
+static_assert(gen_smem_most<__nv_bfloat16, GEN_D_MAX>() <= 232448, "G1's largest launch fits a block");
+
+__device__ __forceinline__ void mma_1688_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo: hi = x rounded to TF32 (to nearest, ties away from zero, as
+// cvt.rna.tf32.f32 rounds, but by two integer operations: a conversion
+// instruction issues at a quarter of the integer rate, 16 results a clock
+// an SM against 64, and with two a value bounded the kernel), lo = x - hi
+// exactly, which the tensor cores read truncated to TF32.  hi.hi + hi.lo +
+// lo.hi then keeps a product to about 2^-21.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// acc += A B in 3xTF32: the small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_1688_tf32(d, al, bh0, bh1);
+  mma_1688_tf32(d, ah, bl0, bl1);
+  mma_1688_tf32(d, ah, bh0, bh1);
+}
+
+// 16 bytes, of which the first `bytes` are read and the rest zero-filled
+// (0: nothing is read)
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
 template <typename T>
-__device__ __forceinline__ T from_f32(float x);
+__device__ __forceinline__ T zero();
 template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+__device__ __forceinline__ float zero<float>() { return 0.f; }
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() { return __float2bfloat16(0.f); }
 
-// Keys a shared tile at padded head dim DM: K and V held as float32, 16 KB each at most.
+// Rows [r0, r0 + R) of a (t, d) panel at token stride `st` into R shared
+// rows at GenCfg's pitch (DM columns): rows at or past t and columns at or
+// past d become zeros.  ALIGNED (the panel's start and token stride are
+// multiples of 16 bytes): 16-byte cp.async, the row's last chunk reading
+// only its columns below d; else one element a load, stored at once.
+template <typename T, int DM, int R, bool ALIGNED>
+__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src, long long st, int r0, int t, int d) {
+  constexpr int P = GenCfg<T, DM>::PITCH;
+  if constexpr (ALIGNED) {
+    constexpr int E = GenCfg<T, DM>::VEC;
+    constexpr int C = DM / E;  // chunks a row
+    for (int i = threadIdx.x; i < R * C; i += GEN_THREADS) {
+      const int r = i / C, col = (i % C) * E, row = r0 + r;
+      const int bytes = row < t && col < d ? min(E, d - col) * static_cast<int>(sizeof(T)) : 0;
+      cp_async16_zfill(smem_u32(dst + r * P + col), bytes ? src + row * st + col : src, bytes);
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * DM; i += GEN_THREADS) {
+      const int r = i / DM, c = i % DM, row = r0 + r;
+      dst[r * P + c] = row < t && c < d ? src[row * st + c] : zero<T>();
+    }
+  }
+}
+
+// A warp's Q: G1's bf16 A fragments (DM / 16 k16 steps), G2's TF32 halves
+// (DM / 8 k8 steps) in registers, or nothing (G2 above 64: shared memory).
+template <typename T, int DM, bool SMEM = GenCfg<T, DM>::Q_SMEM>
+struct GenQ;
 template <int DM>
-__host__ __device__ constexpr int gen_bk() { return DM <= 64 ? 64 : 32; }
+struct GenQ<__nv_bfloat16, DM, false> {
+  uint32_t a[DM / 16][4];
+};
+template <int DM>
+struct GenQ<float, DM, false> {
+  uint32_t hi[DM / 8][4], lo[DM / 8][4];
+};
+template <int DM>
+struct GenQ<float, DM, true> {};
 
-// q, k, v (B, H, T, d) of T (float or bf16) at the given strides, last dim
-// contiguous, no alignment asked; o (B, T, H, d), contiguous.  DM: d rounded
-// up to 16, 32, 64 or 128 (the padding is zeros).  Block (x, y): head x =
-// b * H + h, query tile y (with causal the heaviest, last, tile first).
-// Thread 4 r + part owns query row r of the tile and its head dims 16 i + 4
-// part + e: a score is four partial dot products summed over the quad by
-// two shuffles, so the quad holds equal scores, maxima and sums.  REL_POS
-// adds bias_h[q, key / grid_w] + bias_w[q, key % grid_w] for any grid.
-template <typename T, bool REL_POS, bool CAUSAL, int DM>
-__global__ void __launch_bounds__(GEN_THREADS)
-general_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
-               Strides sq, Strides sk, Strides sv, int heads, int t, int d, float scale, RelPos rp) {
+// S = Q K^T for one key tile (BK / 8 n8 groups) from the staged K.
+// G1: mma.sync m16n8k16 bf16, K's B fragments by ldmatrix (x4: two k16
+// steps; x2: an odd last step).  G2: m16n8k8 in 3xTF32, K's fragments read
+// as float32 and split; Q's halves from registers or shared memory (rows
+// `qrow`, the warp's first, of `qh` and `ql`).
+template <typename T, int DM>
+__device__ __forceinline__ void gen_scores(float (&s)[GenCfg<T, DM>::BK / 8][4], const GenQ<T, DM>& qf, const T* ks,
+                                           const float* qh, const float* ql, int qrow) {
+  using C = GenCfg<T, DM>;
+  constexpr int NG = C::BK / 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NG; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  if constexpr (!C::F32) {
+    const int k_row = lane & 7, k_chunk = lane >> 3;
+    const uint32_t base = smem_u32(ks);
+#pragma unroll
+    for (int kp = 0; kp < DM / 32; ++kp) {
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, base + ((j * 8 + k_row) * C::PITCH + (4 * kp + k_chunk) * 8) * 2);
+        mma_16816(s[j], qf.a[2 * kp], kb[0], kb[1]);
+        mma_16816(s[j], qf.a[2 * kp + 1], kb[2], kb[3]);
+      }
+    }
+    if constexpr ((DM / 16) % 2) {
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+        uint32_t kt[2];
+        ldmatrix_x2(kt, base + ((j * 8 + k_row) * C::PITCH + (DM / 8 - 2 + (k_chunk & 1)) * 8) * 2);
+        mma_16816(s[j], qf.a[DM / 16 - 1], kt[0], kt[1]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < DM / 8; ++kk) {
+      uint32_t ah[4], al[4];
+      if constexpr (C::Q_SMEM) {
+        const int o = (qrow + g) * C::PITCH + kk * 8 + tg;
+        ah[0] = __float_as_uint(qh[o]);
+        ah[1] = __float_as_uint(qh[o + 8 * C::PITCH]);
+        ah[2] = __float_as_uint(qh[o + 4]);
+        ah[3] = __float_as_uint(qh[o + 8 * C::PITCH + 4]);
+        al[0] = __float_as_uint(ql[o]);
+        al[1] = __float_as_uint(ql[o + 8 * C::PITCH]);
+        al[2] = __float_as_uint(ql[o + 4]);
+        al[3] = __float_as_uint(ql[o + 8 * C::PITCH + 4]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ah[e] = qf.hi[kk][e];
+          al[e] = qf.lo[kk][e];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+        const float* kr = reinterpret_cast<const float*>(ks) + (j * 8 + g) * C::PITCH + kk * 8 + tg;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(kr[0], bh0, bl0);
+        split_tf32(kr[4], bh1, bl1);
+        mma_3xtf32(s[j], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+}
+
+// acc += P V for one key tile from the staged V, P in the score registers.
+// G1: two adjacent S fragments are one bf16 A fragment (P rounded to bf16,
+// as the tensor-core kernels round it), V's B fragments by ldmatrix.trans.
+// G2: P stays float32 and is split like the other operands; the k8 step of
+// n8 group j takes its keys in the order 2 tg, 2 tg + 1 (A's columns tg and
+// tg + 4 are the S fragment's own two columns, so no shuffle), and V's B
+// fragments read rows j * 8 + 2 tg and j * 8 + 2 tg + 1 to match.  `alpha`
+// rescales each row's output before the tile's products are added.
+template <typename T, int DM>
+__device__ __forceinline__ void gen_pv(float (&acc)[DM / 8][4], const float (&alpha)[2],
+                                       const float (&s)[GenCfg<T, DM>::BK / 8][4], const T* vs) {
+  using C = GenCfg<T, DM>;
+  constexpr int NG = C::BK / 8;
+  const int lane = threadIdx.x & 31;
+  if constexpr (!C::F32) {
+#pragma unroll
+    for (int j = 0; j < DM / 8; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+    const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8, v_chunk = lane >> 4;
+    const uint32_t base = smem_u32(vs);
+#pragma unroll
+    for (int kg = 0; kg < NG / 2; ++kg) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16x2(s[2 * kg][0], s[2 * kg][1]);
+      pa[1] = pack_bf16x2(s[2 * kg][2], s[2 * kg][3]);
+      pa[2] = pack_bf16x2(s[2 * kg + 1][0], s[2 * kg + 1][1]);
+      pa[3] = pack_bf16x2(s[2 * kg + 1][2], s[2 * kg + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < DM / 16; ++dp) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, base + ((kg * 16 + v_row) * C::PITCH + (2 * dp + v_chunk) * 8) * 2);
+        mma_16816(acc[2 * dp], pa, vb[0], vb[1]);
+        mma_16816(acc[2 * dp + 1], pa, vb[2], vb[3]);
+      }
+    }
+  } else {
+    // the tile's products summed apart and added to acc by one IEEE FADD a
+    // tile: the tensor cores' float32 sums do not round to nearest, and a
+    // running sum over a long key loop would carry their error from tile to
+    // tile
+    const int g = lane >> 2, tg = lane & 3;
+    float part[DM / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < DM / 8; ++nt) part[nt][0] = part[nt][1] = part[nt][2] = part[nt][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      uint32_t ph[4], pl[4];
+      split_tf32(s[j][0], ph[0], pl[0]);  // (row g, key 2 tg): A's (g, tg)
+      split_tf32(s[j][2], ph[1], pl[1]);  // (row g + 8, key 2 tg)
+      split_tf32(s[j][1], ph[2], pl[2]);  // (row g, key 2 tg + 1): A's (g, tg + 4)
+      split_tf32(s[j][3], ph[3], pl[3]);  // (row g + 8, key 2 tg + 1)
+      const float* vr = reinterpret_cast<const float*>(vs) + (j * 8 + 2 * tg) * C::PITCH + g;
+#pragma unroll
+      for (int nt = 0; nt < DM / 8; ++nt) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(vr[nt * 8], bh0, bl0);
+        split_tf32(vr[nt * 8 + C::PITCH], bh1, bl1);
+        mma_3xtf32(part[nt], ph, pl, bh0, bh1, bl0, bl1);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < DM / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = fmaf(acc[nt][e], alpha[e >> 1], part[nt][e]);
+  }
+}
+
+// s = s * scale + bias_h[row, ky] + bias_w[row, kx] for one key tile, (ky,
+// kx) of each key from the tile's table; bh and bw this thread's first row
+// of each, the second `dh` and `dw` floats on.
+template <int NG>
+__device__ __forceinline__ void add_bias(float (&s)[NG][4], const uint32_t* tab, float scale, const float* bh,
+                                         const float* bw, long long dh, long long dw) {
+  const int tg = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NG; ++j) {
+    const uint2 e = *reinterpret_cast<const uint2*>(tab + j * 8 + tg * 2);  // keys 2 tg, 2 tg + 1
+    const int y0 = e.x & 0xffffu, x0 = e.x >> 16, y1 = e.y & 0xffffu, x1 = e.y >> 16;
+    s[j][0] = fmaf(s[j][0], scale, bh[y0] + bw[x0]);
+    s[j][1] = fmaf(s[j][1], scale, bh[y1] + bw[x1]);
+    s[j][2] = fmaf(s[j][2], scale, bh[dh + y0] + bw[dw + x0]);
+    s[j][3] = fmaf(s[j][3], scale, bh[dh + y1] + bw[dw + x1]);
+  }
+}
+
+// q, k, v (B, H, T, d) of T (bf16 or float) at the given strides, last dim
+// contiguous; o (B, T, H, d), contiguous.  Block (x, y): head x = b * H +
+// h, query tile y of GEN_BQ rows (with causal the heaviest, last, tile
+// first); warp w owns rows 16 w .. 16 w + 15 of it.  The key tiles stream
+// through a GEN_STAGES-deep ring: tile i + 1 is in flight while tile i is
+// computed, one barrier a tile.  REL_POS adds bias_h[q, ky] + bias_w[q, kx]
+// on any grid, (ky, kx) from a per-tile table; the block's 64 bias rows sit
+// in shared memory for h + w <= GEN_BIAS_HW_MAX, else they are read through
+// L1.  Only a tile with the ragged key edge or (causal) keys past a warp's
+// first row is masked per element; with causal the key loop ends at the
+// block's diagonal, and a warp skips a tile wholly past its rows.
+template <typename T, bool REL_POS, bool CAUSAL, int DM, bool ALIGNED>
+__device__ __forceinline__ void gen_body(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                                         T* __restrict__ o, Strides sq, Strides sk, Strides sv, int heads, int t,
+                                         int d, float scale, RelPos rp) {
   static_assert(!(REL_POS && CAUSAL), "the bias and the causal mask never meet");
-  constexpr int BK = gen_bk<DM>();
-  constexpr int PER = DM / 16;  // float4 groups of head dims a thread
-  static_assert(BK % GEN_CHUNK == 0, "a tile is whole chunks");
-  __shared__ __align__(16) float ks[BK * DM];
-  __shared__ __align__(16) float vs[BK * DM];
+  using C = GenCfg<T, DM>;
+  constexpr int BK = C::BK, NG = BK / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  auto stage_k = [&](int s) { return reinterpret_cast<T*>(smem_raw + s * C::STAGE); };
+  auto stage_v = [&](int s) { return reinterpret_cast<T*>(smem_raw + s * C::STAGE + C::TILE); };
+  auto stage_tab = [&](int s) { return reinterpret_cast<uint32_t*>(smem_raw + s * C::STAGE + 2 * C::TILE); };
+  float* qh = reinterpret_cast<float*>(smem_raw + GEN_STAGES * C::STAGE);  // Q_SMEM: Q's hi, then lo
+  float* ql = qh + GEN_BQ * C::PITCH;
+  float* bias_rows = reinterpret_cast<float*>(smem_raw + GEN_STAGES * C::STAGE + C::Q_BYTES);
 
   const int bh = blockIdx.x, b = bh / heads, h = bh % heads;
   const int q0 = (CAUSAL ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * GEN_BQ;
-  const int part = threadIdx.x & 3;
-  const int row = q0 + (threadIdx.x >> 2);
-  const int last = CAUSAL ? min(row, t - 1) : t - 1;  // the last key this row sees
-  const int key_end = CAUSAL ? min(t, q0 + GEN_BQ) : t;  // the keys the block reads
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
+  const int r0 = q0 + warp * 16 + g;  // this thread's rows r0 and r0 + 8
+  const int key_end = CAUSAL ? min(t, q0 + GEN_BQ) : t;
+  const int tiles = (key_end + BK - 1) / BK;
   q += b * sq.b + h * sq.h;
   k += b * sk.b + h * sk.h;
   v += b * sv.b + h * sv.h;
 
-  float qr[PER][4], acc[PER][4];
-#pragma unroll
-  for (int i = 0; i < PER; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = 16 * i + 4 * part + e;
-      qr[i][e] = row < t && c < d ? to_f32(q[row * sq.t + c]) : 0.f;
-      acc[i][e] = 0.f;
+  const bool staged_bias = REL_POS && rp.grid_h + rp.grid_w <= GEN_BIAS_HW_MAX;
+  const int ph = bias_pitch(rp.grid_h), pw = bias_pitch(rp.grid_w);
+  auto stage_tile = [&](int i) {
+    const int s = i % GEN_STAGES, key0 = i * BK;
+    stage_rows<T, DM, BK, ALIGNED>(stage_k(s), k, sk.t, key0, t, d);
+    stage_rows<T, DM, BK, ALIGNED>(stage_v(s), v, sv.t, key0, t, d);
+    if constexpr (REL_POS) {
+      if (threadIdx.x < BK) {
+        const int key = key0 + threadIdx.x, ky = key / rp.grid_w;
+        stage_tab(s)[threadIdx.x] =
+            key < t ? static_cast<uint32_t>(ky) | static_cast<uint32_t>(key - ky * rp.grid_w) << 16 : 0u;
+      }
     }
-  const float* bias_h_row = nullptr;
-  const float* bias_w_row = nullptr;
-  if constexpr (REL_POS) {  // a row past t reads row t - 1's and is not stored
-    const size_t r = static_cast<size_t>(bh) * t + min(row, t - 1);
-    bias_h_row = rp.bias_h + r * rp.grid_h;
-    bias_w_row = rp.bias_w + r * rp.grid_w;
-  }
-  // scores in log2 units: exp(x) = 2^(x * log2(e))
-  const float sc = REL_POS ? scale : scale * LOG2E;
-  float m = NEG_INF, l = 0.f;
+  };
 
-  for (int k0 = 0; k0 < key_end; k0 += BK) {
-    const int nk = min(BK, key_end - k0);
-    __syncthreads();  // every thread is done with the last tile
-    for (int i = threadIdx.x; i < BK * DM; i += GEN_THREADS) {
-      const int r = i / DM, c = i % DM;
-      const bool in = r < nk && c < d;
-      ks[i] = in ? to_f32(k[(k0 + r) * sk.t + c]) : 0.f;
-      vs[i] = in ? to_f32(v[(k0 + r) * sv.t + c]) : 0.f;
+  // the prologue: key tile 0, Q (in the second stage, or its own panels),
+  // and the block's bias rows, in one commit group
+  stage_tile(0);
+  stage_rows<T, DM, GEN_BQ, ALIGNED>(C::Q_SMEM ? reinterpret_cast<T*>(qh) : stage_k(1), q, sq.t, q0, t, d);
+  if constexpr (REL_POS) {
+    if (staged_bias) {  // rows past t repeat row t - 1 and are not stored
+      const size_t row0 = static_cast<size_t>(bh) * t;
+      for (int i = threadIdx.x; i < GEN_BQ * rp.grid_h; i += GEN_THREADS) {
+        const int r = i / rp.grid_h, c = i - r * rp.grid_h;
+        cp_async4(smem_u32(bias_rows + r * ph + c), rp.bias_h + (row0 + min(q0 + r, t - 1)) * rp.grid_h + c, true);
+      }
+      float* bw = bias_rows + GEN_BQ * ph;
+      for (int i = threadIdx.x; i < GEN_BQ * rp.grid_w; i += GEN_THREADS) {
+        const int r = i / rp.grid_w, c = i - r * rp.grid_w;
+        cp_async4(smem_u32(bw + r * pw + c), rp.bias_w + (row0 + min(q0 + r, t - 1)) * rp.grid_w + c, true);
+      }
     }
-    __syncthreads();
-    for (int j0 = 0; j0 < nk; j0 += GEN_CHUNK) {
-      float s[GEN_CHUNK];
-      float mx = m;
-      int ky = 0, kx = 0;
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  GenQ<T, DM> qf;
+  if constexpr (!C::F32) {  // A fragments by ldmatrix from the staged rows
+    const uint32_t base = smem_u32(stage_k(1));
+    const int row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, chunk = lane >> 4;
+#pragma unroll
+    for (int kk = 0; kk < DM / 16; ++kk) ldmatrix_x4(qf.a[kk], base + (row * C::PITCH + (2 * kk + chunk) * 8) * 2);
+  } else if constexpr (!C::Q_SMEM) {
+    const float* qs = reinterpret_cast<const float*>(stage_k(1)) + (warp * 16 + g) * C::PITCH + tg;
+#pragma unroll
+    for (int kk = 0; kk < DM / 8; ++kk) {
+      split_tf32(qs[kk * 8], qf.hi[kk][0], qf.lo[kk][0]);
+      split_tf32(qs[kk * 8 + 8 * C::PITCH], qf.hi[kk][1], qf.lo[kk][1]);
+      split_tf32(qs[kk * 8 + 4], qf.hi[kk][2], qf.lo[kk][2]);
+      split_tf32(qs[kk * 8 + 8 * C::PITCH + 4], qf.hi[kk][3], qf.lo[kk][3]);
+    }
+  } else {  // split in place: qh keeps the high halves, ql the low
+    for (int i = threadIdx.x; i < GEN_BQ * C::PITCH; i += GEN_THREADS) {
+      uint32_t hi, lo;
+      split_tf32(qh[i], hi, lo);
+      qh[i] = __uint_as_float(hi);
+      ql[i] = __uint_as_float(lo);
+    }
+  }
+  __syncthreads();  // Q has left the second stage (or is split) before tile 1 lands there
+
+  // this thread's two bias rows: in the block's staged rows, or in device
+  // memory (rows past t read row t - 1 and are not stored)
+  const int srow = warp * 16 + g;
+  const size_t grow0 = static_cast<size_t>(bh) * t + min(r0, t - 1);
+  const size_t grow1 = static_cast<size_t>(bh) * t + min(r0 + 8, t - 1);
+
+  float acc[DM / 8][4];
+#pragma unroll
+  for (int j = 0; j < DM / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // running max; this thread's partial sums
+  const float sc = REL_POS ? LOG2E : scale * LOG2E;     // scores to log2 units
+  const int warp_row = q0 + warp * 16;                  // the warp's first row
+
+  for (int i = 0; i < tiles; ++i) {
+    if (i + 1 < tiles) stage_tile(i + 1);
+    cp_async_commit();
+    const int s = i % GEN_STAGES, key0 = i * BK;
+    if (!CAUSAL || key0 <= warp_row + 15) {  // a tile wholly past the warp's rows adds nothing
+      float sf[NG][4];
+      gen_scores<T, DM>(sf, qf, stage_k(s), qh, ql, warp * 16);
       if constexpr (REL_POS) {
-        ky = (k0 + j0) / rp.grid_w;
-        kx = k0 + j0 - ky * rp.grid_w;
-      }
-#pragma unroll
-      for (int j = 0; j < GEN_CHUNK; ++j) {
-        const float* kr = ks + (j0 + j) * DM + 4 * part;
-        float dot = 0.f;
-#pragma unroll
-        for (int i = 0; i < PER; ++i) {
-          const float4 kk = *reinterpret_cast<const float4*>(kr + 16 * i);
-          dot = fmaf(qr[i][0], kk.x, dot);
-          dot = fmaf(qr[i][1], kk.y, dot);
-          dot = fmaf(qr[i][2], kk.z, dot);
-          dot = fmaf(qr[i][3], kk.w, dot);
-        }
-        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-        const bool seen = k0 + j0 + j <= last;  // keys past the row's last (or past t) masked
-        float x;
-        if constexpr (REL_POS) {
-          x = seen ? fmaf(dot, scale, bias_h_row[ky] + bias_w_row[kx]) * LOG2E : NEG_INF;
-          if (++kx == rp.grid_w) {
-            kx = 0;
-            ++ky;
-          }
+        // two branches, so that each reads its rows as shared or global
+        // memory (a pointer that may be either costs a generic load)
+        if (staged_bias) {
+          const float* sbh = bias_rows + srow * ph;
+          const float* sbw = bias_rows + GEN_BQ * ph + srow * pw;
+          add_bias<NG>(sf, stage_tab(s), scale, sbh, sbw, 8 * ph, 8 * pw);
         } else {
-          x = seen ? dot * sc : NEG_INF;
+          add_bias<NG>(sf, stage_tab(s), scale, rp.bias_h + grow0 * rp.grid_h, rp.bias_w + grow0 * rp.grid_w,
+                       static_cast<long long>(grow1 - grow0) * rp.grid_h,
+                       static_cast<long long>(grow1 - grow0) * rp.grid_w);
         }
-        s[j] = x;
-        mx = fmaxf(mx, x);
       }
-      const float alpha = exp2f(m - mx);
-      m = mx;
-      l *= alpha;
+      if (key0 + BK > t || (CAUSAL && key0 + BK - 1 > warp_row)) {  // keys past t, or past a row
 #pragma unroll
-      for (int i = 0; i < PER; ++i)
+        for (int j = 0; j < NG; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] *= alpha;
+          for (int e = 0; e < 4; ++e) {
+            const int key = key0 + j * 8 + tg * 2 + (e & 1);
+            if (key >= t || (CAUSAL && key > r0 + 8 * (e >> 1))) sf[j][e] = NEG_INF;
+          }
+      }
+      // the online softmax in log2 units: one FFMA and one ex2 a score
+      float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int j = 0; j < GEN_CHUNK; ++j) {
-        const float p = exp2f(s[j] - mx);
-        l += p;
-        const float pv = to_f32(from_f32<T>(p));  // bf16: P V takes P rounded, as the tensor-core kernels do
-        const float* vr = vs + (j0 + j) * DM + 4 * part;
+      for (int j = 0; j < NG; ++j)
 #pragma unroll
-        for (int i = 0; i < PER; ++i) {
-          const float4 vv = *reinterpret_cast<const float4*>(vr + 16 * i);
-          acc[i][0] = fmaf(pv, vv.x, acc[i][0]);
-          acc[i][1] = fmaf(pv, vv.y, acc[i][1]);
-          acc[i][2] = fmaf(pv, vv.z, acc[i][2]);
-          acc[i][3] = fmaf(pv, vv.w, acc[i][3]);
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sf[j][e]);
+      float alpha[2], shift[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = ex2((m[r] - mx[r]) * sc);
+        m[r] = mx[r];
+        l[r] *= alpha[r];
+        shift[r] = -mx[r] * sc;
+      }
+#pragma unroll
+      for (int j = 0; j < NG; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(fmaf(sf[j][e], sc, shift[e >> 1]));
+          sf[j][e] = p;
+          l[e >> 1] += p;
         }
+      gen_pv<T, DM>(acc, alpha, sf, stage_v(s));
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // tile i + 1 has landed; every warp is done with stage s
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x = l[r];
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    x += __shfl_xor_sync(0xffffffffu, x, 2);
+    inv[r] = 1.f / fmaxf(x, 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= t) continue;
+    T* out = o + ((static_cast<size_t>(b) * t + row) * heads + h) * d;
+#pragma unroll
+    for (int j = 0; j < DM / 8; ++j) {
+      const int col = j * 8 + tg * 2;
+      const float x0 = acc[j][2 * r] * inv[r], x1 = acc[j][2 * r + 1] * inv[r];
+      if (col + 1 < d && (d & 1) == 0) {  // an aligned pair
+        if constexpr (C::F32)
+          *reinterpret_cast<float2*>(out + col) = make_float2(x0, x1);
+        else
+          *reinterpret_cast<uint32_t*>(out + col) = pack_bf16x2(x0, x1);
+      } else {
+        if (col < d) out[col] = static_cast<T>(x0);
+        if (col + 1 < d) out[col + 1] = static_cast<T>(x1);
       }
     }
   }
-  if (row >= t) return;
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-  T* out = o + ((static_cast<size_t>(b) * t + row) * heads + h) * d;
-#pragma unroll
-  for (int i = 0; i < PER; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = 16 * i + 4 * part + e;
-      if (c < d) out[c] = from_f32<T>(acc[i][e] * inv);
-    }
 }
 
-template <typename T, bool REL_POS, bool CAUSAL, int DM>
-void launch_general_dm(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk, Strides sv,
-                       int b, int h, int t, int d, float scale, RelPos rp, cudaStream_t stream) {
-  const dim3 grid(b * h, (t + GEN_BQ - 1) / GEN_BQ);
-  general_kernel<T, REL_POS, CAUSAL, DM><<<grid, GEN_THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), sq, sk, sv,
-      h, t, d, scale, rp);
+// G1 (bf16) is built for 4 blocks an SM at head dim 16 (at most 128
+// registers a thread), 3 through 64 and 2 above, where fewer registers
+// would spill; G2 (float32) for 2 (its shared memory allows no more with the
+// bias staged).
+constexpr int G2_MIN_BLOCKS = 2;
+
+template <bool REL_POS, bool CAUSAL, int DM, bool ALIGNED>
+__global__ void __launch_bounds__(GEN_THREADS, DM == 16 ? 4 : DM <= 64 ? 3 : 2)
+g1_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, Strides sq, Strides sk,
+               Strides sv, int heads, int t, int d, float scale, RelPos rp) {
+  gen_body<__nv_bfloat16, REL_POS, CAUSAL, DM, ALIGNED>(q, k, v, o, sq, sk, sv, heads, t, d, scale, rp);
 }
 
-template <typename T, bool REL_POS, bool CAUSAL>
-int launch_general(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk, Strides sv, int b,
-                   int h, int t, int d, float scale, RelPos rp, cudaStream_t stream) {
-  if (d <= 16)
-    launch_general_dm<T, REL_POS, CAUSAL, 16>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream);
-  else if (d <= 32)
-    launch_general_dm<T, REL_POS, CAUSAL, 32>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream);
-  else if (d <= 64)
-    launch_general_dm<T, REL_POS, CAUSAL, 64>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream);
+template <bool REL_POS, bool CAUSAL, int DM, bool ALIGNED>
+__global__ void __launch_bounds__(GEN_THREADS, G2_MIN_BLOCKS)
+g2_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                 float* __restrict__ o, Strides sq, Strides sk, Strides sv, int heads, int t, int d, float scale,
+                 RelPos rp) {
+  gen_body<float, REL_POS, CAUSAL, DM, ALIGNED>(q, k, v, o, sq, sk, sv, heads, t, d, scale, rp);
+}
+
+template <typename T, bool REL_POS, bool CAUSAL, int DM, bool ALIGNED>
+auto gen_kernel() {
+  if constexpr (sizeof(T) == 4)
+    return g2_tf32x3_kernel<REL_POS, CAUSAL, DM, ALIGNED>;
   else
-    launch_general_dm<T, REL_POS, CAUSAL, GEN_D_MAX>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream);
+    return g1_bf16_kernel<REL_POS, CAUSAL, DM, ALIGNED>;
+}
+
+// The general launch's shared memory, set as the kernel's allowance once a
+// device (for the instantiation's largest launch).
+template <typename T, bool REL_POS, bool CAUSAL, int DM, bool ALIGNED>
+cudaError_t gen_allow(size_t* smem, int grid_h, int grid_w) {
+  const bool staged = REL_POS && grid_h + grid_w <= GEN_BIAS_HW_MAX;
+  *smem = staged ? gen_smem<T, DM>(grid_h, grid_w) : gen_smem<T, DM>(0, 0);
+  static std::atomic<unsigned> allowed{0};  // a bit a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (allowed.load() >> dev & 1u)) return err;
+  const size_t most = REL_POS ? gen_smem_most<T, DM>() : gen_smem<T, DM>(0, 0);
+  err = cudaFuncSetAttribute(gen_kernel<T, REL_POS, CAUSAL, DM, ALIGNED>(),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(most));
+  if (err == cudaSuccess) allowed.fetch_or(1u << dev);
+  return err;
+}
+
+template <typename T, bool REL_POS, bool CAUSAL, int DM, bool ALIGNED>
+int launch_gen(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk, Strides sv, int b,
+               int h, int t, int d, float scale, RelPos rp, cudaStream_t stream) {
+  size_t smem = 0;
+  const cudaError_t err = gen_allow<T, REL_POS, CAUSAL, DM, ALIGNED>(&smem, rp.grid_h, rp.grid_w);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(b * h, (t + GEN_BQ - 1) / GEN_BQ);
+  const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k), *vt = static_cast<const T*>(v);
+  if constexpr (sizeof(T) == 4)
+    g2_tf32x3_kernel<REL_POS, CAUSAL, DM, ALIGNED><<<grid, GEN_THREADS, smem, stream>>>(
+        qt, kt, vt, static_cast<T*>(o), sq, sk, sv, h, t, d, scale, rp);
+  else
+    g1_bf16_kernel<REL_POS, CAUSAL, DM, ALIGNED><<<grid, GEN_THREADS, smem, stream>>>(
+        qt, kt, vt, static_cast<T*>(o), sq, sk, sv, h, t, d, scale, rp);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instantiation for a head dim: DM = d rounded up to 16.
+template <typename T, bool REL_POS, bool CAUSAL, bool ALIGNED>
+int launch_gen_d(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk, Strides sv, int b,
+                 int h, int t, int d, float scale, RelPos rp, cudaStream_t stream) {
+#define HA_GEN_DM(DM)                                                                                          \
+  case DM:                                                                                                     \
+    return launch_gen<T, REL_POS, CAUSAL, DM, ALIGNED>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream);
+  switch ((d + 15) & ~15) {
+    HA_GEN_DM(16)
+    HA_GEN_DM(32)
+    HA_GEN_DM(48)
+    HA_GEN_DM(64)
+    HA_GEN_DM(80)
+    HA_GEN_DM(96)
+    HA_GEN_DM(112)
+    HA_GEN_DM(128)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef HA_GEN_DM
+}
+
 template <typename T>
-int launch_general_any(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk, Strides sv, int b,
-                       int h, int t, int d, int causal, float scale, RelPos rp, cudaStream_t stream) {
+int launch_gen_any(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk, Strides sv, int b,
+                   int h, int t, int d, int causal, bool aligned, float scale, RelPos rp, cudaStream_t stream) {
   if (rp.bias_h != nullptr)
-    return launch_general<T, true, false>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream);
-  return causal ? launch_general<T, false, true>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream)
-                : launch_general<T, false, false>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream);
+    return aligned ? launch_gen_d<T, true, false, true>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream)
+                   : launch_gen_d<T, true, false, false>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream);
+  if (causal)
+    return aligned ? launch_gen_d<T, false, true, true>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream)
+                   : launch_gen_d<T, false, true, false>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream);
+  return aligned ? launch_gen_d<T, false, false, true>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream)
+                 : launch_gen_d<T, false, false, false>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream);
+}
+
+// Whether every panel a general launch reads may be staged by 16-byte
+// copies: q, k and v start on 16 bytes and every stride is a multiple of
+// 16 bytes.
+bool gen_aligned(const void* q, const void* k, const void* v, Strides sq, Strides sk, Strides sv, int elem) {
+  for (const void* p : {q, k, v})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  for (const Strides& s : {sq, sk, sv})
+    if ((s.b * elem) % 16 || (s.h * elem) % 16 || (s.t * elem) % 16) return false;
+  return true;
+}
+
+// The plan of a general launch into out[0..9]: blocks per head, blocks,
+// blocks per SM (the occupancy calculator's), SMs, registers a thread,
+// shared memory a block (bytes), the blocks per SM its registers alone and
+// its shared memory alone allow, DM, keys a tile.
+template <typename T, bool REL_POS, bool CAUSAL, int DM>
+cudaError_t gen_report(int bh, int t, int grid_h, int grid_w, int* out) {
+  const auto kernel = gen_kernel<T, REL_POS, CAUSAL, DM, true>();
+  size_t smem = 0;
+  cudaFuncAttributes attr;
+  int dev = 0, sms = 0, per_sm = 0, by_regs = 0, smem_per_sm = 0, reserved = 0;
+  cudaError_t err = gen_allow<T, REL_POS, CAUSAL, DM, true>(&smem, grid_h, grid_w);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, GEN_THREADS, smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&by_regs, kernel, GEN_THREADS, 0);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&smem_per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (err != cudaSuccess) return err;
+  const int tiles = (t + GEN_BQ - 1) / GEN_BQ;
+  const int report[10] = {tiles, tiles * bh, per_sm, sms, attr.numRegs, static_cast<int>(smem), by_regs,
+                          smem_per_sm / (static_cast<int>(smem) + reserved), DM, GenCfg<T, DM>::BK};
+  for (int i = 0; i < 10; ++i) out[i] = report[i];
+  return cudaSuccess;
+}
+
+template <typename T, bool REL_POS, bool CAUSAL>
+cudaError_t gen_report_d(int bh, int t, int d, int grid_h, int grid_w, int* out) {
+  switch ((d + 15) & ~15) {
+    case 16: return gen_report<T, REL_POS, CAUSAL, 16>(bh, t, grid_h, grid_w, out);
+    case 32: return gen_report<T, REL_POS, CAUSAL, 32>(bh, t, grid_h, grid_w, out);
+    case 48: return gen_report<T, REL_POS, CAUSAL, 48>(bh, t, grid_h, grid_w, out);
+    case 64: return gen_report<T, REL_POS, CAUSAL, 64>(bh, t, grid_h, grid_w, out);
+    case 80: return gen_report<T, REL_POS, CAUSAL, 80>(bh, t, grid_h, grid_w, out);
+    case 96: return gen_report<T, REL_POS, CAUSAL, 96>(bh, t, grid_h, grid_w, out);
+    case 112: return gen_report<T, REL_POS, CAUSAL, 112>(bh, t, grid_h, grid_w, out);
+    case 128: return gen_report<T, REL_POS, CAUSAL, 128>(bh, t, grid_h, grid_w, out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t gen_report_any(int bh, int t, int d, int grid_h, int grid_w, int causal, int* out) {
+  if (grid_h + grid_w) return gen_report_d<T, true, false>(bh, t, d, grid_h, grid_w, out);
+  return causal ? gen_report_d<T, false, true>(bh, t, d, 0, 0, out) : gen_report_d<T, false, false>(bh, t, d, 0, 0, out);
 }
 
 }  // namespace
@@ -1502,12 +1998,15 @@ extern "C" int ha_flash_attention_long(const void* q, const void* k, const void*
 }
 
 // K1's and K2's general route, every input the tensor-core routes do not
-// take: q, k, v (b, h, t, d) float32 (bf16 == 0) or bf16 (bf16 != 0) at
-// element strides s*_b, s*_h, s*_t (last dim contiguous; any alignment), 1
-// <= d <= GEN_D_MAX; o (b, t, h, d) of the same type, contiguous.  With
-// bias_h non-null (K1): bias_h (b*h, t, grid_h) and bias_w (b*h, t, grid_w)
-// f32, contiguous, t == grid_h * grid_w, any grid, causal 0.  Without (K2):
-// causal != 0 masks key > query.  Returns the cudaError_t of the launch.
+// take: q, k, v (b, h, t, d) float32 (bf16 == 0: G2) or bf16 (bf16 != 0:
+// G1) at element strides s*_b, s*_h, s*_t (last dim contiguous; any
+// alignment: where q, k, v start on 16 bytes and every stride is a multiple
+// of 16 bytes the tiles are staged by 16-byte cp.async, else element by
+// element), 1 <= d <= GEN_D_MAX; o (b, t, h, d) of the same type,
+// contiguous.  With bias_h non-null (K1): bias_h (b*h, t, grid_h) and
+// bias_w (b*h, t, grid_w) f32, contiguous, t == grid_h * grid_w, any grid
+// up to GEN_GRID_MAX a side, causal 0.  Without (K2): causal != 0 masks key
+// > query.  Returns the cudaError_t of the launch.
 extern "C" int ha_flash_attention_general(const void* q, const void* k, const void* v, const void* bias_h,
                                           const void* bias_w, void* o, long long sq_b, long long sq_h,
                                           long long sq_t, long long sk_b, long long sk_h, long long sk_t,
@@ -1515,14 +2014,30 @@ extern "C" int ha_flash_attention_general(const void* q, const void* k, const vo
                                           int grid_h, int grid_w, int causal, int bf16, float scale, void* stream) {
   const bool rel_pos = bias_h != nullptr;
   if (d <= 0 || d > GEN_D_MAX || t <= 0 || b <= 0 || h <= 0 || static_cast<long long>(b) * h > 0x7fffffff ||
-      (t + GEN_BQ - 1) / GEN_BQ > 65535 || (rel_pos && (causal || bias_w == nullptr || grid_h <= 0 ||
-                                                        grid_w <= 0 || static_cast<long long>(grid_h) * grid_w != t)))
+      (t + GEN_BQ - 1) / GEN_BQ > 65535 ||
+      (rel_pos && (causal || bias_w == nullptr || grid_h <= 0 || grid_w <= 0 || grid_h > GEN_GRID_MAX ||
+                   grid_w > GEN_GRID_MAX || static_cast<long long>(grid_h) * grid_w != t)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides sq{sq_b, sq_h, sq_t}, sk{sk_b, sk_h, sk_t}, sv{sv_b, sv_h, sv_t};
-  const RelPos rp{static_cast<const float*>(bias_h), static_cast<const float*>(bias_w), grid_h, grid_w};
+  const RelPos rp = rel_pos ? RelPos{static_cast<const float*>(bias_h), static_cast<const float*>(bias_w), grid_h,
+                                     grid_w}
+                            : RelPos{nullptr, nullptr, 0, 0};
+  const bool aligned = gen_aligned(q, k, v, sq, sk, sv, bf16 ? 2 : 4);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_general_any<__nv_bfloat16>(q, k, v, o, sq, sk, sv, b, h, t, d, causal, scale, rp, s)
-              : launch_general_any<float>(q, k, v, o, sq, sk, sv, b, h, t, d, causal, scale, rp, s);
+  return bf16 ? launch_gen_any<__nv_bfloat16>(q, k, v, o, sq, sk, sv, b, h, t, d, causal, aligned, scale, rp, s)
+              : launch_gen_any<float>(q, k, v, o, sq, sk, sv, b, h, t, d, causal, aligned, scale, rp, s);
+}
+
+// The general route's plan for (bh heads, t tokens) at head dim d into
+// out[0..9] (see gen_report), for the instantiation with 16-byte staging:
+// grid_h, grid_w the K1 grid (0, 0 for K2); causal: K2's causal
+// instantiation; bf16: G1, else G2.  Returns a cudaError_t.
+extern "C" int ha_flash_attention_general_plan(int bh, int t, int d, int grid_h, int grid_w, int causal, int bf16,
+                                               int* out) {
+  if (bh <= 0 || t <= 0 || d <= 0 || d > GEN_D_MAX || grid_h < 0 || grid_w < 0 || ((grid_h + grid_w) && causal))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(bf16 ? gen_report_any<__nv_bfloat16>(bh, t, d, grid_h, grid_w, causal, out)
+                               : gen_report_any<float>(bh, t, d, grid_h, grid_w, causal, out));
 }
 
 // The resident kernel's plan for (bh heads, t tokens) into out[0..7] (see

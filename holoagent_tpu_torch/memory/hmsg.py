@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..device import DeviceLike, resolve
 from ..ops import image2d
 from ..ops.compact import I32_MAX
 from ..ops.kmeans import kmeans
@@ -110,10 +111,12 @@ def detect_floor_boundaries(
     cluster_eps_m: float = 1.0,
     virtual_gap_m: float = 2.5,
     max_peaks: int = 64,
-    device="cpu",  # where the peak finder runs
+    device: DeviceLike = None,
 ) -> List[Tuple[float, float]]:
     """Floor slab [lo, hi) boundaries from the up-coordinate histogram
-    (reference graph.py:646-763)."""
+    (reference graph.py:646-763).  The peak finder runs on `device`, the
+    card unless the caller asks for the CPU."""
+    device = resolve(device)
     lo, hi = float(up_coords.min()), float(up_coords.max())
     bins = max(int((hi - lo) / resolution), 8)
     hist, edges = np.histogram(up_coords, bins=bins)
@@ -203,10 +206,13 @@ def segment_room_raster(
     height: float,
     resolution: float = 0.05,
     max_rooms: int = 64,
-    device="cpu",  # where the raster programs run
+    device: DeviceLike = None,
 ) -> RoomRaster:
     """Walls-skeleton + outside-boundary + watershed room raster
-    (reference graph.py:940-1069 + distance_transform graph_utils.py:391-487)."""
+    (reference graph.py:940-1069 + distance_transform graph_utils.py:391-487).
+    The raster programs run on `device`, the card unless the caller asks for
+    the CPU."""
+    device = resolve(device)
     z = floor_points[:, 2]
     mid = floor_points[(z >= zero_level + 0.3) & (z < zero_level + height - 0.3)]
     full = floor_points[z < zero_level + height - 0.2]

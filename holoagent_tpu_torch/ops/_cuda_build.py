@@ -26,6 +26,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--split-compile=0",  # the device compilation in parallel on every core (many kernel instantiations a source)
 )
 
 

@@ -33,10 +33,14 @@ the shape and the dtype before the launch (``k1_route``, ``k2_route``;
   query tile skips the keys past its last row and masks only the chunk that
   holds its diagonal), "long" beyond (the same TMA + ``wgmma`` kernel
   without the bias, its key loop ending at the diagonal tile with causal);
-- everything else, for either kernel: "general", one CUDA-core kernel with
-  float32 scores and sums (float32 towers, the tiny and fixture towers' head
-  dims 16 and 32, a causal layer at 80, K1's other grids).  It is the
-  correctness route, not a production one.
+- everything else, for either kernel: "general" (float32 towers, the tiny
+  and fixture towers' head dims 16 and 32, a causal layer at 80, K1's other
+  grids): two streaming kernels on the tensor cores behind one C entry, G1
+  for bf16 (``mma.sync`` bf16, K and V staged in bf16) and G2 for float32
+  (3xTF32 ``mma.sync``: float32's accuracy with TF32 off), each at the head
+  dim rounded up to 16 (``GENERAL_DMS``), 64 queries a block
+  (``GENERAL_BQ``), key tiles through a ``GENERAL_STAGES``-deep
+  ``cp.async`` ring (``general_grid``, ``general_plan``).
 The wrappers raise only for a head dim above ``GENERAL_D_MAX``, another
 dtype, or more heads than a resident or K1 global launch's grid holds
 (``MAX_HEADS``).
@@ -44,10 +48,12 @@ The tensor-core kernels read q, k and v where they lie: any batch, head and
 token strides that are multiples of 16 bytes, last dim contiguous, such as
 ``_attend``'s and ``_attention_2d``'s views of a fused (B, T, 3W) projection
 (``strided_inputs``; a layout they do not read in place is copied by
-``kernel_layout``); the general kernel reads any strides with a contiguous
-last dim.  Each writes a (B, T, H, D) buffer and the wrapper returns its
-(B, H, T, D) transpose (``attention_output``), so the caller's transpose back
-to (B, T, W) is a view and no K2 call copies anything.
+``kernel_layout``); the general kernels read any strides with a contiguous
+last dim (by 16-byte copies where q, k, v and their strides allow, else
+element by element: the C entry decides from the pointers and strides).
+Each writes a (B, T, H, D) buffer and the wrapper returns its (B, H, T, D)
+transpose (``attention_output``), so the caller's transpose back to (B, T,
+W) is a view and no K2 call copies anything.
 """
 
 from __future__ import annotations
@@ -64,8 +70,10 @@ NEG_INF = -1e30
 HEAD_DIM = 64  # CLIP ViT-B-32 and ViT-L/14, every text tower, the VLMs; SAM vit_b and vit_l
 K1_HEAD_DIMS = (64, 80)  # the tensor-core instantiations: 80 is SAM vit_h's (HEAD_DIM_WIDE of csrc/flash_attention.cu)
 K2_HEAD_DIMS = (64, 80)  # 80: CLIP ViT-H-14's visual tower, without the causal mask
-GENERAL_D_MAX = 128  # the general kernel's largest head dim: GEN_D_MAX of csrc/flash_attention.cu
-GENERAL_BQ = 64  # queries a block of the general kernel: GEN_BQ of csrc/flash_attention.cu
+GENERAL_D_MAX = 128  # the general kernels' largest head dim: GEN_D_MAX of csrc/flash_attention.cu
+GENERAL_BQ = 64  # queries a block of the general kernels: GEN_BQ of csrc/flash_attention.cu
+GENERAL_STAGES = 2  # the general kernels' K/V ring: GEN_STAGES of csrc/flash_attention.cu
+GENERAL_DMS = tuple(range(16, GENERAL_D_MAX + 1, 16))  # the instantiated head dims: d rounded up to 16
 MAX_HEADS = 65535  # heads the resident and global routes' grids hold (their y dimension)
 DTYPES = (torch.bfloat16, torch.float32)
 TYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}  # in each launch's trace key
@@ -117,6 +125,7 @@ LIB = CudaLibrary("flash_attention.cu", {
     "ha_flash_attention_resident": [_p, _p, _p, _p, *[_l] * 9, _i, _i, _i, _i, _i, _f, _p],
     "ha_flash_attention_long": [_p, _p, _p, _p, *[_l] * 9, _i, _i, _i, _i, _i, _f, _p],
     "ha_flash_attention_general": [_p, _p, _p, _p, _p, _p, *[_l] * 9, *[_i] * 8, _f, _p],
+    "ha_flash_attention_general_plan": [*[_i] * 7, ctypes.POINTER(ctypes.c_int)],
     "ha_flash_attention_plan": [_i, _i, _i, _i, _i, ctypes.POINTER(ctypes.c_int)],
     "ha_flash_attention_global_plan": [_i, _i, _i, _i, ctypes.POINTER(ctypes.c_int)],
 })
@@ -151,7 +160,7 @@ def strided_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, route: str
     """(tensor, strides) of q, k and v: CUDA tensors of q's dtype (bf16 for
     a tensor-core route), each read in place where the route can read it:
     the 16-byte rule of `kernel_layout` for the tensor-core kernels, a
-    contiguous last dim for the general kernel."""
+    contiguous last dim for the general kernels."""
     for x, nm in ((q, "q"), (k, "k"), (v, "v")):
         check_input(x, nm, torch.bfloat16 if route != "general" else q.dtype)
     if route != "general":
@@ -193,11 +202,38 @@ def global_plan(bh: int, n: int, rel_pos: bool = True, d: int = HEAD_DIM) -> dic
     return dict(zip(("blocks_per_head", "grid", "blocks_per_sm", "sms"), out))
 
 
-def general_plan(bh: int, t: int) -> dict:
-    """The general kernel's grid for `bh` heads of `t` tokens: query tiles
-    of GENERAL_BQ a head, one block each."""
+def general_keys(dm: int, dtype: torch.dtype) -> int:
+    """Keys a tile of the general kernels at padded head dim `dm`: 64, and
+    32 for float32 above 64 (GenCfg::BK of csrc/flash_attention.cu)."""
+    return 32 if dtype == torch.float32 and dm > 64 else 64
+
+
+def general_grid(bh: int, t: int, d: int = HEAD_DIM, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The general kernels' grid for `bh` heads of `t` tokens at head dim
+    `d`: query tiles of GENERAL_BQ a head, one block each, at the padded
+    head dim `dm` (d rounded up to 16) and its keys a tile."""
     tiles = -(-t // GENERAL_BQ)
-    return {"blocks_per_head": tiles, "grid": tiles * bh}
+    dm = -(-d // 16) * 16
+    return {"blocks_per_head": tiles, "grid": tiles * bh, "dm": dm, "keys_per_tile": general_keys(dm, dtype)}
+
+
+def general_plan(bh: int, t: int, d: int = HEAD_DIM, dtype: torch.dtype = torch.bfloat16,
+                 grid_hw: Optional[Tuple[int, int]] = None, causal: bool = False) -> dict:
+    """A general launch's plan on the current card (its instantiation with
+    16-byte staging): general_grid's figures as the source computes them,
+    and as resident_plan gives them blocks per SM (CUDA's occupancy
+    calculator), SMs, registers a thread, shared memory a block in bytes,
+    and the blocks per SM that the registers alone and the shared memory
+    alone allow.  `grid_hw`: K1's grid (the bias on), None for K2; `causal`:
+    K2's causal instantiation."""
+    gh, gw = grid_hw or (0, 0)
+    out = (ctypes.c_int * 10)()
+    err = LIB.load().ha_flash_attention_general_plan(bh, t, d, gh, gw, int(causal), int(dtype == torch.bfloat16), out)
+    if err:
+        raise RuntimeError(f"ha_flash_attention_general_plan failed: cudaError {err}")
+    keys = ("blocks_per_head", "grid", "blocks_per_sm", "sms", "regs", "smem", "blocks_by_regs", "blocks_by_smem",
+            "dm", "keys_per_tile")
+    return dict(zip(keys, out))
 
 
 def _takes(d: int, dtype: torch.dtype) -> None:

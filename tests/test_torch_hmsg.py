@@ -181,7 +181,7 @@ def test_detect_floor_boundaries(case):
         z = np.concatenate([np.zeros(4000), rng.uniform(0, 2.5, 2000), np.full(800, 2.5)]) + rng.normal(0, 0.01, 6800)
     else:
         z = _storey_z(rng)
-    assert hmsg.detect_floor_boundaries(z) == jhmsg.detect_floor_boundaries(z)
+    assert hmsg.detect_floor_boundaries(z, device="cpu") == jhmsg.detect_floor_boundaries(z)
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +248,7 @@ def test_room_rasters_exact(jax_side):
     cfg = jax_side["cfg"]
     for fl in jax_side["graph"].floors:
         args = (fl.pcd_points, fl.floor_zero_level, fl.floor_height, cfg.pipeline.grid_resolution)
-        rj, rt = jhmsg.segment_room_raster(*args), hmsg.segment_room_raster(*args)
+        rj, rt = jhmsg.segment_room_raster(*args), hmsg.segment_room_raster(*args, device="cpu")
         np.testing.assert_array_equal(rt.labels, rj.labels)
         np.testing.assert_array_equal(rt.origin, rj.origin)
         assert rt.labels.max() >= 1
