@@ -76,7 +76,11 @@ Phases (any failure exits non-zero, with no result line):
      extraction: the bf16 Mapper untiered at extract_frames_per_dispatch 1,
      2, 2 and 1 in turns (the same scene; each frame's batched
      FrameFeatures held against its per-frame ones), then the W8A8 towers'
-     extract_frames_batched over the keyframes in pairs; (m) (e)'s
+     extract_frames_batched over the keyframes in pairs; (sp) the stage
+     spans on one traced dispatch of the tiered and of the batched path:
+     no span synchronises, the spans' blocking-wait counts equal the
+     trace's cudaStreamSynchronize calls inside them, no device event bears
+     a span's name; (m) (e)'s
      three_room oracle frames through a Mapper with the hierarchical fold,
      its state saved and loaded on the card (every tensor equal), and a
      state saved without coarse keys reloaded with them recomputed (equal
@@ -170,7 +174,8 @@ Phases (any failure exits non-zero, with no result line):
      vit_b and CLIP ViT-L/14 in float32 from load_models), Mapper.run +
      finalize with every K1 and K2 launch on the general route (G2), its
      keyframe features against the plain extraction's on the card.  A
-     [time] line after each phase says when it ended.  Per-stage ms, frames/s or ms/keyframe, peak memory; the
+     [time] line after each phase says when it ended.  Per-stage ms (spans timed by events on the stream,
+     no synchronise) and blocking waits, frames/s or ms/keyframe, peak memory; the
      kernels' launch counts, by route for the attention kernels, and their
      device time inside each run.  Every K1, K2 and K3 shape a path launched
      that no case of phase 3 held gets its own case before the kernels
@@ -251,7 +256,7 @@ from holoagent_tpu_torch.training import contrastive, distill, perception, zoo  
 from holoagent_tpu_torch.utils.camera import Pinhole, project  # noqa: E402
 from holoagent_tpu_torch.utils.geometry import exp_se3, invert_pose, log_se3, transform_points  # noqa: E402
 from holoagent_tpu_torch.utils.labels import DEFAULT_ROOM_TYPES, SCANNET_LABELS_20, load_vocabulary  # noqa: E402
-from holoagent_tpu_torch.utils import tracing  # noqa: E402
+from holoagent_tpu_torch.utils import timing, tracing  # noqa: E402
 from holoagent_tpu_torch.utils.timing import StageTimer  # noqa: E402
 
 # H100 SXM published peaks (dense tensor cores: bf16, int8, TF32; HBM3).
@@ -975,7 +980,8 @@ def report(tag, nf, wall, timer, launches, in_path, peak, expect):
     """Print a path's stages and kernel launches; check the counts per
     keyframe against `expect`."""
     for name, v in sorted(timer.ms.items()):  # a sub-stage "a.b" sorts after its stage "a"
-        log(f"[{tag}] stage {name:18s} {v:10.3f} ms total  {v / timer.calls[name]:9.3f} ms/call")
+        log(f"[{tag}] stage {name:18s} {v:10.3f} ms total  {v / timer.calls[name]:9.3f} ms/call (event-timed)  "
+            f"{timer.calls[name + timing.SYNC]} blocking waits")
     log(f"[{tag}] clip tiers per frame: {timer.notes['tier']}")
     log(f"[{tag}] max_memory_allocated {peak / 2**30:.3f} GiB")
     log(f"[{tag}] launches {launches}")
@@ -1455,6 +1461,78 @@ def recording(out):
 
 
 ALLOC_STATS = ("num_device_alloc", "num_device_free", "num_alloc_retries")
+
+
+def span_path(clip, sam, ds, cfg_dict, tag):
+    """(sp) The stage spans on one traced dispatch of each mapping path,
+    tiered (one keyframe) and batched (two keyframes untiered), each with
+    its finalize, under the profiler: no span synchronises
+    (``torch.cuda.synchronize`` counted while a span is open, and the
+    trace's cudaDeviceSynchronize inside spans), the spans' "#sync" total
+    equals the trace's cudaStreamSynchronize calls inside spans, no device
+    event bears a span's name, and the sync-debug mode is off again after.
+    Prints each span's ms, calls and blocking waits, and the waits by call
+    site."""
+    cuda_dev = torch.autograd.DeviceType.CUDA
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    sites = collections.Counter()
+    show, sync = timing._SyncCounter._show, torch.cuda.synchronize
+
+    def show_site(self, message, category, filename, lineno, file=None, line=None):
+        if str(message).startswith(timing.SYNC_WARNING):
+            sites[self.timer._open[-1], f"{os.path.relpath(filename)}:{lineno}"] += 1
+        return show(self, message, category, filename, lineno, file, line)
+
+    for path, bsz, tiering in (("tiered", 1, True), ("batched", 2, False)):
+        d = copy.deepcopy(cfg_dict)
+        d["pipeline"].update(extract_tiering=tiering, extract_frames_per_dispatch=bsz, skip_frames=1)
+        pcfg = from_dict(d)
+        frames = [ds[i] for i in range(0, len(ds), cfg_dict["pipeline"]["skip_frames"])][:bsz]  # keyframes
+        Mapper(pcfg, clip, sam).run(frames)  # warm-up at this path's shapes, untraced
+        timer = StageTimer("cuda")
+        in_span_syncs = [0]
+
+        def counting_sync(*a, **kw):
+            in_span_syncs[0] += bool(timer._open)
+            return sync(*a, **kw)
+
+        sites.clear()
+        torch.cuda.synchronize()
+        timing._SyncCounter._show, torch.cuda.synchronize = show_site, counting_sync
+        try:
+            with torch.profiler.profile(activities=acts) as prof:
+                Mapper(pcfg, clip, sam, timer=timer).run(frames)
+                sync()
+        finally:
+            timing._SyncCounter._show, torch.cuda.synchronize = show, sync
+        ms = timer.ms
+        names = {k for k in timer.calls if not k.endswith(timing.SYNC)}
+        events = prof.events()
+        spans = [(e.time_range.start, e.time_range.end) for e in events
+                 if e.name in names and e.device_type != cuda_dev]
+        runtime = collections.Counter(
+            e.name for e in events if e.device_type != cuda_dev and e.name.endswith("Synchronize")
+            and any(s <= e.time_range.start < t for s, t in spans))
+        on_device = sorted({e.name for e in events if e.device_type == cuda_dev and e.name in names})
+        n_sync = sum(n for k, n in timer.calls.items() if k.endswith(timing.SYNC))
+        run = f"{tag}-{path}"
+        for name in sorted(names):
+            log(f"[{run}] span {name:18s} parent {str(timer.parent[name]):12s} {ms[name]:10.3f} ms (event-timed) "
+                f"{timer.calls[name]:3d} calls  {timer.calls[name + timing.SYNC]:3d} blocking waits")
+        for (name, where), n in sorted(sites.items()):
+            log(f"[{run}] blocking waits in {name:18s} at {where}: {n}")
+        log(f"[{run}] {len(spans)} span ranges in the trace; runtime waits inside them {dict(runtime)}; "
+            f"torch.cuda.synchronize inside spans {in_span_syncs[0]}; #sync total {n_sync}; "
+            f"device events named as spans {on_device}")
+        check(timer.calls["dispatch"] == 1 and timer.calls["backproject"] == bsz,
+              f"{run}: {timer.calls['dispatch']} dispatch spans, {timer.calls['backproject']} frames")
+        check(len(spans) == sum(timer.calls[n] for n in names), f"{run}: {len(spans)} span ranges in the trace")
+        check(in_span_syncs[0] == 0 and runtime["cudaDeviceSynchronize"] == 0,
+              f"{run}: a span synchronised ({in_span_syncs[0]} calls, {runtime['cudaDeviceSynchronize']} in the trace)")
+        check(n_sync == runtime["cudaStreamSynchronize"],
+              f"{run}: #sync total {n_sync}, cudaStreamSynchronize inside spans {runtime['cudaStreamSynchronize']}")
+        check(not on_device, f"{run}: device events named as spans: {on_device}")
+        check(torch.cuda.get_sync_debug_mode() == 0, f"{run}: the sync-debug mode left on")
 
 
 def batched_path(clip, sam, ds, cfg_dict, tag):
@@ -3940,6 +4018,8 @@ def main() -> int:
     paths["(l) batched extraction, W8A8, pairs"] = batched_w8a8_extraction(
         qclip, qsam, ds, qcfg, paths["w8a8"]["ms"].keyframe_feats, "batched-w8a8")
     stamp("(a)-(d), (k), (l)")
+    span_path(clip, sam, ds, CONFIG, "spans")
+    stamp("(sp) stage spans")
     for path in paths.values():
         path.pop("ms", None)  # the mapped scenes are checked: free their device state
     torch.cuda.empty_cache()

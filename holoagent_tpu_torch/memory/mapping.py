@@ -68,7 +68,9 @@ class Mapper:
     may be None when every frame comes with its FrameFeatures (the oracle
     protocol); the feature width is then ``clip_variant``'s (default: the
     configured CLIP type's).  A ``timer`` (utils.timing.StageTimer) records
-    synchronised per-stage ms."""
+    per-stage spans, timed by events on the device's stream without a
+    synchronise, and each span's blocking waits; ``run`` opens one
+    ``dispatch`` span a group of keyframes."""
 
     def __init__(
         self,
@@ -199,21 +201,24 @@ class Mapper:
         in groups of bsz: a group of two or more is extracted at once
         (``extract_frames_batched``, untiered), a last single frame by
         ``process_frame`` (tiered when ``extract_tiering`` is set), as the
-        reference does; the frames are then integrated in their order."""
+        reference does; the frames are then integrated in their order.  A
+        timer gets one ``dispatch`` span a group, opened once its frames
+        are fetched."""
         p = self.cfg.pipeline
         idxs = list(range(0, len(dataset), p.skip_frames))
         bsz = max(1, p.extract_frames_per_dispatch)
         for s in range(0, len(idxs), bsz):
             frames = [dataset[i] for i in idxs[s : s + bsz]]
-            if len(frames) == 1:
-                self.process_frame(frames[0])
-                continue
-            if self.clip is None or self.sam is None:
-                raise ValueError("batched extraction needs the towers")
-            images = torch.stack([self._tensor(f.rgb) for f in frames])
-            ffb = extract_frames_batched(self.clip, self.sam, images, **self._extract_kw())
-            for j, frame in enumerate(frames):
-                self.process_frame(frame, ff=FrameFeatures(*(a[j] for a in ffb)))
+            with stage(self.timer, "dispatch"):
+                if len(frames) == 1:
+                    self.process_frame(frames[0])
+                    continue
+                if self.clip is None or self.sam is None:
+                    raise ValueError("batched extraction needs the towers")
+                images = torch.stack([self._tensor(f.rgb) for f in frames])
+                ffb = extract_frames_batched(self.clip, self.sam, images, **self._extract_kw())
+                for j, frame in enumerate(frames):
+                    self.process_frame(frame, ff=FrameFeatures(*(a[j] for a in ffb)))
         return self.finalize()
 
     def _hier_th(self, height: int) -> float:

@@ -1,24 +1,26 @@
 """Stage tracing and profiler integration (counterpart of
 holoagent_tpu/utils/tracing.py).
 
-``StageTimer`` is the port's ``utils/timing.StageTimer`` (per-stage wall ms,
-device work included).  ``device_trace`` wraps a region in
-``torch.profiler.profile`` (CPU activities, and CUDA where the card is
-present) and writes a Chrome trace into ``log_dir``; it yields the
-profiler, whose ``key_averages()`` and ``events()`` give the device time.
-``annotate`` names a region in that trace (``torch.profiler.record_function``)
-and, on the card, as an NVTX range.
+``StageTimer`` is the port's ``utils/timing.StageTimer``: per-stage spans
+timed by CUDA events on the stream (no synchronise), named in the
+profiler's trace, with each span's count of the host's blocking waits.
+``device_trace`` wraps a region in ``torch.profiler.profile`` (CPU
+activities, and CUDA where the card is present) and writes a Chrome trace
+into ``log_dir``; it yields the profiler, whose ``key_averages()`` and
+``events()`` give the device time.  ``annotate`` names a region in that
+trace by the record the spans use, which the profiler copies to no device
+timeline.
 """
 
 from __future__ import annotations
 
 import contextlib
 from pathlib import Path
-from typing import Iterator, Optional
+from typing import Iterable, Iterator, Optional, Tuple
 
 import torch
 
-from .timing import StageTimer, stage  # noqa: F401  (re-exported: the one stage timer)
+from .timing import StageTimer, named, stage  # noqa: F401  (re-exported: the one stage timer and its record)
 
 TRACE_FILE = "trace.json"
 
@@ -41,25 +43,29 @@ def device_trace(log_dir: str | Path, enabled: bool = True) -> Iterator[Optional
     prof.export_chrome_trace(str(log_dir / TRACE_FILE))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named region in the profiler's trace, and an NVTX range on the card."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+annotate = named  # a named region in the profiler's trace, on the host's timeline only
+
+
+def busy(intervals: Iterable[Tuple[float, float]]) -> float:
+    """The length of the union of (start, end) intervals: time covered by
+    two overlapping ones counts once."""
+    total, covered = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > covered:
+            total += e - max(s, covered)
+            covered = e
+    return total
 
 
 def device_idle_share(prof: torch.profiler.profile, wall_ms: float) -> dict:
-    """The device's kernels in a profiled region of `wall_ms`: their count,
-    their summed device ms, and the share of the wall time the device was
-    idle (one stream: 1 - device / wall), as scripts/*_profile.py read it."""
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.device_time for e in kernels) / 1e3
-    return {"kernels": len(kernels), "device_ms": device_ms, "wall_ms": wall_ms,
+    """The device's operations in a profiled region of `wall_ms`: their
+    count, the ms the device was busy (the union of their intervals, so
+    overlapping kernels count once) and the share of the wall time it was
+    idle.  The profiler's device-side copies of user annotations
+    (``torch.profiler.record_function`` ranges) are no device work and are
+    left out."""
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    device_ms = busy((e.time_range.start, e.time_range.end) for e in ops) / 1e3
+    return {"kernels": len(ops), "device_ms": device_ms, "wall_ms": wall_ms,
             "idle_share": 1.0 - device_ms / wall_ms if wall_ms > 0 else float("nan")}
