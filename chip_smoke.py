@@ -37,7 +37,13 @@ Phases (any failure exits non-zero, with no result line):
      kernels against the same encoders through the plain versions, in bf16
      and as W8A8 towers (CLIP in both qmm modes), the CLIP ViT-L/14 text
      tower (features of the SCANNET20 prompts), and SAM vit_h's encoder in
-     bf16 and W8A8;
+     bf16 and W8A8; then the NMS kernel (csrc/masks.cu) against the plain
+     loop, bit for bit, on the edge cases of tests/_nms_cases.py and on the
+     decoder output of SAM vit_h (bf16) and W8A8 vit_b at points_per_side
+     12 and of bf16 vit_b at 4 and 32, rejecting each faulty plain version
+     there (ties to the higher index, >= for >, invalid candidates that
+     suppress), with the kernel, the plain loop and the host's time to
+     issue each timed;
   5. main paths, each with every launch count set to 0 just before it and
      read just after: Mapper.run + finalize over posed 640x480 frames of the
      synthetic three-room scene, SAM vit_b + CLIP ViT-L/14 from a seeded
@@ -176,10 +182,10 @@ Phases (any failure exits non-zero, with no result line):
      keyframe features against the plain extraction's on the card.  A
      [time] line after each phase says when it ended.  Per-stage ms (spans timed by events on the stream,
      no synchronise) and blocking waits, frames/s or ms/keyframe, peak memory; the
-     kernels' launch counts, by route for the attention kernels, and their
-     device time inside each run.  Every K1, K2 and K3 shape a path launched
-     that no case of phase 3 held gets its own case before the kernels
-     line.
+     kernels' launch counts (NMS one a frame), by route for the attention
+     kernels and NMS, and their device time inside each run.  Every K1, K2,
+     K3 and NMS shape a path launched that no case of phase 3 or 4 held gets
+     its own case before the kernels line.
 Prints one JSON line of kernels, then the nvidia-smi line, then as the last
 line {"ok": true, "device": {...}}.
 """
@@ -190,6 +196,7 @@ import collections
 import contextlib
 import copy
 import functools
+import importlib.util
 import io
 import json
 import math
@@ -200,6 +207,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -240,6 +248,7 @@ from holoagent_tpu_torch.models import transformer as tfm  # noqa: E402
 from holoagent_tpu_torch.models import vlm as vlm_mod  # noqa: E402
 from holoagent_tpu_torch.nav import bt_xml  # noqa: E402
 from holoagent_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from holoagent_tpu_torch.ops import masks as masks_mod  # noqa: E402
 from holoagent_tpu_torch.ops import retrieval as retrieval_ops, solvers  # noqa: E402
 from holoagent_tpu_torch.ops.backproject import backproject  # noqa: E402
 from holoagent_tpu_torch.ops import quant_matmul as qm  # noqa: E402
@@ -258,6 +267,15 @@ from holoagent_tpu_torch.utils.geometry import exp_se3, invert_pose, log_se3, tr
 from holoagent_tpu_torch.utils.labels import DEFAULT_ROOM_TYPES, SCANNET_LABELS_20, load_vocabulary  # noqa: E402
 from holoagent_tpu_torch.utils import timing, tracing  # noqa: E402
 from holoagent_tpu_torch.utils.timing import StageTimer  # noqa: E402
+
+# the NMS edge cases and faults the CPU tests use (by path: a machine may
+# have another top-level package named "tests")
+_spec = importlib.util.spec_from_file_location(
+    "nms_cases", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "_nms_cases.py"))
+_nms_cases = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_nms_cases)
+NMS_CASE_NAMES, NMS_FAULTS = _nms_cases.NMS_CASE_NAMES, _nms_cases.NMS_FAULTS
+clustered_boxes, nms_case, nms_with_fault = _nms_cases.clustered_boxes, _nms_cases.nms_case, _nms_cases.nms_with_fault
 
 # H100 SXM published peaks (dense tensor cores: bf16, int8, TF32; HBM3).
 # The general route's float32 kernel (G2) takes each product as three TF32
@@ -797,11 +815,112 @@ def log_attention_case(c) -> None:
 
 
 # ---------------------------------------------------------------------------
+# NMS: ops/masks.py::nms -> csrc/masks.cu
+# ---------------------------------------------------------------------------
+
+# The kernel computes the plain loop's keep mask operation for operation
+# (the stable order, box_iou's float32 arithmetic with IEEE division, the
+# strict threshold), so a case passes only with no keep flag differing from
+# the plain loop on the CPU (the function the CPU tests hold to the JAX
+# package) and on the card.  The check must reject each faulty plain version
+# of tests/_nms_cases.py: ties to the higher index, >= for >, and invalid
+# candidates that suppress.  Its bound is latency, not bytes or operations:
+# a launch and the greedy scan's chain (`bound_ms` is the larger of the
+# IoUs' float32 operations at PEAK_F32_FLOPS and the bytes, for the table).
+PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
+IOU_FLOPS = 19  # ops/masks.py::box_iou for one pair
+
+
+def host_ms(fn, n: int = 20) -> float:
+    """The host's time to issue one call (no synchronise inside the count)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return 1e3 * t
+
+
+def nms_case_run(name, boxes, scores, valid, thresh, held):
+    """Hold the kernel against the plain loop, bit for bit, and time it;
+    the inputs and the keep mask go into `held` for the faults' check."""
+    boxes, scores, valid = boxes.cpu(), scores.cpu(), valid.cpu()
+    m = boxes.shape[0]
+    route = masks_mod.nms_route(m)
+    args = (boxes.cuda(), scores.cuda(), valid.cuda(), thresh)
+    n0, r0 = masks_mod.nms.launches, masks_mod.nms.routes[route]
+    keep = masks_mod.nms(*args)
+    torch.cuda.synchronize()
+    check((masks_mod.nms.launches, masks_mod.nms.routes[route]) == (n0 + 1, r0 + 1), f"{name}: not one {route} launch")
+    ref = masks_mod.nms_ref(boxes, scores, valid, thresh)
+    differing = int((keep.cpu() != ref).sum())
+    card_differing = int((masks_mod.nms_ref(*args).cpu() != ref).sum())
+    check(keep.dtype == torch.bool and differing == 0, f"{name}: {differing} of {m} keep flags differ")
+    check(card_differing == 0, f"{name}: the plain loop on the card differs from the CPU's in {card_differing} flags")
+    held[name] = ((boxes, scores, valid, thresh), ref)
+    res = dict(kernel="nms", key=(m,), name=name, shape=f"M={m}", route=route, valid=int(valid.sum()),
+               kept=int(ref.sum()), outputs_differing=differing, max_abs_err=0.0,
+               ms=time_ms(lambda: masks_mod.nms(*args)),
+               plain_ms=time_ms(lambda: masks_mod.nms_ref(*args), samples=3, reps=1),
+               host_ms=host_ms(lambda: masks_mod.nms(*args)),
+               plain_host_ms=host_ms(lambda: masks_mod.nms_ref(*args), n=3), library_ms=None)
+    res["bound_ms"], res["bound_by"] = bound(IOU_FLOPS * m * (m - 1) / 2, 22.0 * m, PEAK_F32_FLOPS)
+    log(f"[kernel] {name:28s} M={m:<5d} {route:5s}: {res['valid']} valid, {res['kept']} kept, {differing} flags "
+        f"differ (the card's plain loop: {card_differing}); kernel {res['ms']:.4f} ms  plain {res['plain_ms']:.4f} "
+        f"ms; host {1e3 * res['host_ms']:.1f} us a call (plain {res['plain_host_ms']:.3f} ms)  bound "
+        f"{res['bound_ms']:.2e} ms ({res['bound_by']})")
+    return res
+
+
+def decoder_nms_inputs(sam, frame, pps: int):
+    """The arguments generate_masks gives NMS on one frame at
+    `points_per_side` (the benchmark's accept-all gates: random towers fail
+    trained ones)."""
+    seen = []
+
+    def rec(boxes, scores, valid, iou_thresh=0.7):
+        seen.append((boxes.clone(), scores.clone(), valid.clone(), iou_thresh))
+        return masks_mod.nms(boxes, scores, valid, iou_thresh)
+
+    # SAM's view of ops/masks.py with NMS recorded (the wrapper itself stays)
+    sam_mod.mask_ops = types.SimpleNamespace(**{**vars(masks_mod), "nms": rec})
+    try:
+        sam_mod.generate_masks(sam, torch.as_tensor(frame.rgb, dtype=torch.float32).cuda(), points_per_side=pps,
+                               pred_iou_thresh=-10.0, stability_thresh=0.0, max_masks=16, impl="flash")
+    finally:
+        sam_mod.mask_ops = masks_mod
+    check(len(seen) == 1 and seen[0][0].shape == (3 * pps * pps, 4), f"{sam.variant.name} pps {pps}: NMS inputs")
+    return seen[0]
+
+
+def nms_phase(towers, frame) -> dict:
+    """The NMS kernel against the plain loop on tests/_nms_cases.py's edge
+    cases and on the decoder output of each (name, sam, points_per_side) of
+    `towers`; every fault rejected on some case."""
+    held, cases = {}, []
+    for name in NMS_CASE_NAMES:
+        boxes, scores, valid, thresh = nms_case(name, seed=SEED)
+        cases.append(nms_case_run(f"nms_{name}", torch.from_numpy(boxes), torch.from_numpy(scores),
+                                  torch.from_numpy(valid), thresh, held))
+    for name, sam, pps in towers:
+        cases.append(nms_case_run(f"nms_{name}_pps{pps}", *decoder_nms_inputs(sam, frame, pps), held))
+    for fault in NMS_FAULTS:
+        rejected = [name for name, (inputs, keep) in held.items() if not torch.equal(nms_with_fault(*inputs, fault),
+                                                                                     keep)]
+        check(bool(rejected), f"NMS: the check would pass a plain version with {fault}")
+        log(f"[kernel] NMS: rejects a plain version with {fault} on {len(rejected)} of {len(held)} cases "
+            f"({', '.join(rejected)})")
+    return {c["name"]: c for c in cases}
+
+
+# ---------------------------------------------------------------------------
 # towers and main paths
 # ---------------------------------------------------------------------------
 
 WRAPPERS = {"flash_attention_2d": fa.flash_attention_2d, "flash_attention": fa.flash_attention,
-            "quant_matmul": qm.quant_matmul}
+            "quant_matmul": qm.quant_matmul, "nms": masks_mod.nms}
 
 
 @contextlib.contextmanager
@@ -1119,7 +1238,7 @@ def graph_path(clip, sam, text, ds, cfg, tag, save_path, cfg_dict=CONFIG):
     batches = label_batches + sum(engine_batches)
     per = launches_a_keyframe(clip, sam, cfg)
     expect = {"flash_attention_2d": per["flash_attention_2d"] * nf, "quant_matmul": per["quant_matmul"] * nf,
-              "flash_attention": per["flash_attention"] * nf + text.variant.t_layers * batches}
+              "flash_attention": per["flash_attention"] * nf + text.variant.t_layers * batches, "nms": per["nms"] * nf}
     log(f"[{tag}] text batches of 256 prompts: {label_batches} for the label features, {engine_batches} for the "
         f"engine's calls; expected launches {expect}")
     for name, n in expect.items():
@@ -1412,18 +1531,20 @@ def generative_path(clip, sam, text, ds, cfg, graph_dir, rates, tag):
 
 
 def launches_a_keyframe(clip, sam, cfg=None) -> dict:
-    """K1, K2 and K3 launches one keyframe's extraction makes: one K1 a SAM
-    layer (all windows of a windowed layer in one launch), one K2 a CLIP
-    layer, and with int8 towers one K3 for each of a layer's four linears;
-    with a `cfg`, no K1 unless ``pipeline.extract_impl`` is "flash" and no
-    K2 unless ``extract_clip_impl`` is (the towers' attention then runs
-    plain, and an untiered extraction encodes a keyframe's crops in one
-    batch either way)."""
+    """K1, K2, K3 and NMS launches one keyframe's extraction makes: one K1 a
+    SAM layer (all windows of a windowed layer in one launch), one K2 a CLIP
+    layer, with int8 towers one K3 for each of a layer's four linears, and
+    one NMS a frame whatever the configuration; with a `cfg`, no K1 unless
+    ``pipeline.extract_impl`` is "flash" and no K2 unless
+    ``extract_clip_impl`` is (the towers' attention then runs plain, and an
+    untiered extraction encodes a keyframe's crops in one batch either
+    way).  A batched dispatch makes the towers' launches once for its
+    frames and NMS once a frame."""
     depth, layers = sam.variant.depth, clip.variant.v_layers
     sam_k, clip_k = (True, True) if cfg is None else (cfg.pipeline.extract_impl == "flash",
                                                       cfg.pipeline.extract_clip_impl == "flash")
     return {"flash_attention_2d": depth * sam_k, "flash_attention": layers * clip_k,
-            "quant_matmul": 4 * (depth if sam.quant else 0) + 4 * (layers if clip.quant else 0)}
+            "quant_matmul": 4 * (depth if sam.quant else 0) + 4 * (layers if clip.quant else 0), "nms": 1}
 
 
 def operating_point_path(qclip, qsam_h, ds, cfg, tag):
@@ -1571,7 +1692,8 @@ def batched_path(clip, sam, ds, cfg_dict, tag):
         report(run, nf, wall, timer, launches, in_path, peak, {})
         per_call = launches_a_keyframe(clip, sam)
         for k, n in per_call.items():
-            check(launches[k] == n * calls, f"{run}: {k} launches {launches[k]} != {n} x {calls} calls")
+            times = nf if k == "nms" else calls
+            check(launches[k] == n * times, f"{run}: {k} launches {launches[k]} != {n} x {times}")
         check(len(recorded) == nf, f"{run}: {len(recorded)} extracted frames")
         mss.setdefault(bsz, ms)
         ffs.setdefault(bsz, recorded)
@@ -1612,7 +1734,8 @@ def batched_w8a8_extraction(qclip, qsam, ds, cfg, mapper_feats, tag):
         for key, (n, t) in runs.items():
             log(f"[{tag}] {name} {key}: {n} launches, {t:.4f} ms in the run ({t / n:.4f} ms/launch)")
     for k, n in launches_a_keyframe(qclip, qsam).items():
-        check(launches[k] == n * len(pairs), f"{tag}: {k} launches {launches[k]} != {n} x {len(pairs)} calls")
+        times = nf if k == "nms" else len(pairs)
+        check(launches[k] == n * times, f"{tag}: {k} launches {launches[k]} != {n} x {times}")
     f_g = torch.cat([ff.f_global for ff in ffs])
     check(bool(torch.isfinite(f_g).all()) and f_g.shape == mapper_feats.shape, f"{tag}: f_global")
     cos = F.cosine_similarity(f_g, mapper_feats.float(), dim=-1).min().item()
@@ -1923,7 +2046,8 @@ def hm3dsem_path(root, tag):
     nfs = [summary[s["scene_id"]]["frames"] for s in scenes]
     batches = label_batches(cfg.pipeline.obj_labels, "ROOM_TYPES")  # the first scene fills save_path's label cache
     expect = {"flash_attention_2d": per["flash_attention_2d"] * sum(nfs), "quant_matmul": 0,
-              "flash_attention": per["flash_attention"] * sum(nfs) + models[0][4].variant.t_layers * batches}
+              "flash_attention": per["flash_attention"] * sum(nfs) + models[0][4].variant.t_layers * batches,
+              "nms": per["nms"] * sum(nfs)}
     log(f"[{tag}] batch_map.run_batch over {len(scenes)} scenes ({sum(nfs)} keyframes, SAM {sam.variant.name} "
         f"bf16, CLIP {clip.variant.name} bf16) in {wall:.3f} s (the towers' init included), max_memory_allocated "
         f"{peak / 2**30:.3f} GiB; launches {launches}, expected {expect} ({batches} label text batches)")
@@ -1968,7 +2092,8 @@ def build_path(tag, cfg, models, ds_check, expect_batches, dataset=None):
     nf = stats["frames"]
     per = launches_a_keyframe(clip, sam)
     expect = {"flash_attention_2d": per["flash_attention_2d"] * nf, "quant_matmul": 0,
-              "flash_attention": per["flash_attention"] * nf + models[4].variant.t_layers * expect_batches}
+              "flash_attention": per["flash_attention"] * nf + models[4].variant.t_layers * expect_batches,
+              "nms": per["nms"] * nf}
     log(f"[{tag}] build_map.run, {nf} keyframes (SAM {sam.variant.name}, CLIP {clip.variant.name}, bf16): {wall:.3f} "
         f"s, mapping {stats['mapping_fps']:.3f} keyframes/s (finalize included), "
         f"{(timer.ms['map'] - timer.ms['finalize']) / nf:.3f} ms a keyframe without finalize (stage timer: map "
@@ -3814,11 +3939,13 @@ def y_phase(clip, sam, text, ds, tmp):
 
 
 def hold_new_shapes(cases, paths):
-    """A case for every K1, K2 and K3 shape a path launched that no case
-    held: K1 and K2 as views of one packed projection, as _attention_2d and
-    _attend launch them; K3 as the towers' linears (k3_case)."""
+    """A case for every K1, K2, K3 and NMS shape a path launched that no
+    case held: K1 and K2 as views of one packed projection, as _attention_2d
+    and _attend launch them; K3 as the towers' linears (k3_case); NMS as a
+    clustered draw of that many candidates."""
     held = {c["key"] for c in cases.values()}
     gen = torch.Generator().manual_seed(SEED + 3)
+    nms_rng = np.random.default_rng(SEED + 6)
     k3_gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     dtypes = {v: k for k, v in TYPE_NAMES.items()}
     for kernel in WRAPPERS:
@@ -3833,6 +3960,11 @@ def hold_new_shapes(cases, paths):
                 check(gh == gw, f"K1 launched on a {gh}x{gw} grid: no case builds it")
                 c = k1_case(f"k1_b{b}_h{heads}_g{gh}_d{d}_{dt}", b, heads, gh, gen, d=d, dtype=dtypes[dt])
                 log_attention_case(c)
+            elif kernel == "nms":
+                m, = key
+                scores = np.round(nms_rng.uniform(0, 1, m), 1).astype(np.float32)
+                c = nms_case_run(f"nms_m{m}", torch.from_numpy(clustered_boxes(nms_rng, m)), torch.from_numpy(scores),
+                                 torch.from_numpy(nms_rng.uniform(size=m) < 0.8), 0.7, {})
             else:
                 m, k, n, x_name, out_name = key
                 c = k3_case(f"k3_m{m}_{k}x{n}_{x_name}_{out_name}", m, k, n, dtypes[x_name], dtypes[out_name], k3_gen)
@@ -3850,6 +3982,11 @@ def path_sums(cases, paths) -> None:
             if not runs:
                 continue
             n = sum(r[0] for r in runs.values())
+            if name == "nms":  # no library call computes it
+                sums = {f: sum(r[0] * by_key[k][f] for k, r in runs.items()) for f in ("ms", "plain_ms", "host_ms")}
+                log(f"[paths] {tag}: nms {n} launches, {sum(r[1] for r in runs.values()):.4f} ms in the run; summed "
+                    f"phase {sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f}, host {sums['host_ms']:.4f} ms")
+                continue
             sums = {f: sum(r[0] * by_key[k][f] for k, r in runs.items())
                     for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
             log(f"[paths] {tag}: {name} {n} launches, {sum(r[1] for r in runs.values()):.4f} ms in the run; summed "
@@ -3944,14 +4081,43 @@ def kernels_line(cases, paths):
                                  for tag, path in paths.items()},
             "cases": mine,
         })
+    line.append(nms_line(by_key, cases, paths))
     return {"kernels": line}
+
+
+def nms_line(by_key, cases, paths) -> dict:
+    """The kernels line's NMS entry, for the bf16 Mapper run: one launch a
+    keyframe; no library call computes the function."""
+    for tag, path in paths.items():
+        unchecked = [k for k in path["in_path"]["nms"] if k not in by_key]
+        check(not unchecked, f"nms: the {tag} path launched shapes {unchecked} that no kernel phase held")
+    runs, nf = paths["bf16"]["in_path"]["nms"], paths["bf16"]["nf"]
+    launches = sum(n for n, _ in runs.values())
+    check(launches == nf == paths["bf16"]["launches"]["nms"], f"nms: {launches} launches over {nf} keyframes")
+
+    def summed(field):
+        return sum(n * by_key[k][field] for k, (n, _) in runs.items())
+
+    return {
+        "name": "nms (greedy NMS, one block)", "route": "cuda", "source": "holoagent_tpu_torch/csrc/masks.cu",
+        "replaces": "holoagent_tpu/ops/masks.py:69-93 (fori_loop; no pallas_call)", "launches": launches,
+        "max_abs_err": 0.0, "ms": sum(t for _, t in runs.values()), "plain_ms": summed("plain_ms"),
+        "bound_ms": summed("bound_ms"), "bound_by": "latency: a launch and the greedy scan's chain",
+        "library_ms": None, "isolated_ms": summed("ms"), "host_ms": summed("host_ms"),
+        "plain_host_ms": summed("plain_host_ms"), "ratio_to_library": None,
+        "per": f"the counted bf16 run: {launches} launches over {nf} keyframes",
+        "launches_by_path": {tag: sum(n for n, _ in path["in_path"]["nms"].values()) for tag, path in paths.items()},
+        "cases": [{f: v for f, v in c.items() if f not in ("key", "kernel")} for c in cases.values()
+                  if c["kernel"] == "nms"],
+    }
 
 
 def build_all():
     """One nvcc per kernel source and the native runtime's build (one host
     compiler a source), all started together."""
     t0 = time.perf_counter()
-    builds = {"flash_attention": fa.LIB.build, "quant_matmul": qm.LIB.build, "native": native.build}
+    builds = {"flash_attention": fa.LIB.build, "quant_matmul": qm.LIB.build, "masks": masks_mod.LIB.build,
+              "native": native.build}
     with ThreadPoolExecutor(len(builds)) as ex:
         built = {name: ex.submit(build) for name, build in builds.items()}
         built = {name: f.result() for name, f in built.items()}
@@ -4004,11 +4170,14 @@ def main() -> int:
     q8_tower_checks(qclip, qsam, ds[0], e_bf16, f_bf16)
     text_tower_check(text)
     vit_h_tower_checks(sam_h, qsam_h, ds[0])
+    cases.update(nms_phase((("vit_h_bf16", sam_h, 12), ("vit_b_w8a8", qsam, 12), ("vit_b_bf16", sam, 4),
+                            ("vit_b_bf16", sam, 32)), ds[0]))
+    stamp("NMS kernel phase")
     del sam_h
     stamp("set-up and tower checks")
     paths = {"bf16": main_path(clip, sam, ds, cfg, "main", {"flash_attention_2d": 12, "flash_attention": 24,
-                                                             "quant_matmul": 0})}
-    q8_expect = {"flash_attention_2d": 12, "flash_attention": 24, "quant_matmul": 144}
+                                                             "quant_matmul": 0, "nms": 1})}
+    q8_expect = {"flash_attention_2d": 12, "flash_attention": 24, "quant_matmul": 144, "nms": 1}
     paths["w8a8"] = main_path(qclip, qsam, ds, qcfg, "w8a8", q8_expect)
     paths["w8a8 extraction, clip_qmm=pallas"] = extraction_path(
         qclip, qsam, ds, qcfg, "w8a8-pallas", q8_expect, paths["w8a8"]["ms"].keyframe_feats)
@@ -4102,7 +4271,8 @@ def main() -> int:
         stamp("(u) fixture training")
         _, wall, launches, in_path, peak = counted(lambda: neural_row_path(towers, "neural"))
         log(f"[neural] {wall:.3f} s, peak {peak / 2**30:.3f} GiB, launches {launches}")
-        check(all(n == 0 for n in launches.values()), f"neural row: launches {launches} (impl=\"xla\" everywhere)")
+        check(all(n == 0 for k, n in launches.items() if not k.startswith("nms")),
+              f"neural row: launches {launches} (impl=\"xla\" everywhere; NMS is the kernel on any CUDA tensor)")
         paths["(u) neural row: eval_protocol.run(neural=True)"] = dict(launches=launches, in_path=in_path)
         stamp("(u) neural row")
         _, wall, launches, in_path, peak = counted(lambda: correctness_path(towers, os.path.join(tmp, "suite"), "suite"))

@@ -1,9 +1,28 @@
 """Fixed-capacity mask-set ops (counterpart of holoagent_tpu/ops/masks.py):
-stability scores, boxes, greedy NMS, the disjoint carve, containment."""
+stability scores, boxes, greedy NMS, the disjoint carve, containment.
+
+Greedy NMS on a CUDA tensor is one hand-written CUDA C++ kernel
+(``csrc/masks.cu``, built for ``sm_90a`` with ``nvcc`` at first use and
+loaded with ``ctypes`` by ``ops/_cuda_build.py``), launched on the caller's
+stream: up to ``ONE_BLOCK_MAX_M`` candidates in one block out of shared
+memory ("block"), above it as four kernels over global scratch ("grid").
+It gives the plain version's keep mask bit for bit.  ``nms.launches``
+counts its launches (``nms.routes`` by route); while ``nms.trace`` is a list
+it also collects CUDA events around each launch (``_cuda_build.launch``).
+"""
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from ._cuda_build import CudaLibrary, kernel_input, launch
+
+ONE_BLOCK_MAX_M = 1024  # the one-block route's limit: BLOCK_MAX_M of csrc/masks.cu (a test holds them equal)
+
+_p, _i = ctypes.c_void_p, ctypes.c_int
+LIB = CudaLibrary("masks.cu", {"ha_nms": [_p, _p, _p, ctypes.c_float, _p, _p, ctypes.c_longlong, _i, _p]})
 
 
 def mask_areas(masks: torch.Tensor) -> torch.Tensor:
@@ -49,18 +68,19 @@ def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return inter / torch.clamp(union, min=1e-9)
 
 
-def nms(
+def nms_ref(
     boxes: torch.Tensor,  # (M, 4)
     scores: torch.Tensor,  # (M,)
     valid: torch.Tensor,  # (M,)
     iou_thresh: float = 0.7,
 ) -> torch.Tensor:
-    """Greedy box NMS over a fixed candidate set; returns the keep mask (M,).
+    """The kernel's function in plain PyTorch: the reference's sequential
+    ``fori_loop`` as a Python loop of small ops, one turn a candidate.
 
-    Candidates go in score order (stable); one is kept iff no higher-scoring
-    kept candidate overlaps it above the threshold.  This is the reference's
-    sequential ``fori_loop`` as a Python loop of small device ops: at SAM's
-    3 * 12^2 = 432 candidates it issues a few hundred tiny launches."""
+    Candidates go in score order (stable; a valid NaN score after every
+    number); one is kept iff it is valid and no earlier kept candidate
+    overlaps it above the threshold (IoU in float32 against the threshold
+    rounded to float32)."""
     m = boxes.shape[0]
     neg_inf = torch.full_like(scores, float("-inf"))
     order = torch.argsort(-torch.where(valid, scores, neg_inf), stable=True)
@@ -73,6 +93,56 @@ def nms(
     keep = torch.zeros_like(keep_sorted)
     keep[order] = keep_sorted
     return keep
+
+
+def nms_route(m: int) -> str:
+    """The kernel's route for M candidates: "block" up to ONE_BLOCK_MAX_M
+    (one launch, one block), else "grid"."""
+    return "block" if m <= ONE_BLOCK_MAX_M else "grid"
+
+
+def nms(
+    boxes: torch.Tensor,  # (M, 4) float32 [y0, x0, y1, x1]
+    scores: torch.Tensor,  # (M,) float32
+    valid: torch.Tensor,  # (M,) bool
+    iou_thresh: float = 0.7,
+) -> torch.Tensor:
+    """Greedy box NMS over a fixed candidate set; returns the keep mask (M,)
+    bool (JAX reference: holoagent_tpu/ops/masks.py::nms).  A CUDA tensor
+    goes through the kernel of ``csrc/masks.cu``, one launch a call; a CPU
+    tensor through ``nms_ref``."""
+    m = boxes.shape[0]
+    if boxes.shape != (m, 4) or scores.shape != (m,) or valid.shape != (m,):
+        raise ValueError(f"nms takes boxes (M, 4), scores (M,) and valid (M,), got "
+                         f"{tuple(boxes.shape)}, {tuple(scores.shape)}, {tuple(valid.shape)}")
+    if boxes.dtype != torch.float32 or scores.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise TypeError(f"nms takes float32 boxes and scores and bool valid, got {boxes.dtype}, {scores.dtype}, "
+                        f"{valid.dtype}")
+    if not boxes.device == scores.device == valid.device:
+        raise ValueError(f"nms inputs on {boxes.device}, {scores.device}, {valid.device}: they must share a device")
+    if boxes.device.type == "cpu":
+        return nms_ref(boxes, scores, valid, iou_thresh)
+    bk = kernel_input(boxes, "boxes", torch.float32)
+    sk = kernel_input(scores, "scores", torch.float32)
+    vk = kernel_input(valid, "valid", torch.bool)
+    keep = torch.empty(m, dtype=torch.bool, device=boxes.device)
+    route = nms_route(m)
+    scratch = None
+    if route == "grid":  # sorted boxes, keys, indices, validity and the bit matrix (the source's layout(m))
+        words = (m + 63) // 64
+        scratch = torch.empty(29 * m + 8 * m * words + 8 * words + 16, dtype=torch.uint8, device=boxes.device)
+    launch(
+        nms, (m,), torch.cuda.current_stream(boxes.device), LIB.load().ha_nms,
+        bk.data_ptr(), sk.data_ptr(), vk.data_ptr(), iou_thresh, keep.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), 0 if scratch is None else scratch.numel(), m,
+        route=route,
+    )
+    return keep
+
+
+nms.launches = 0
+nms.routes = {"block": 0, "grid": 0}
+nms.trace = None
 
 
 def to_disjoint(masks: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

@@ -2,6 +2,8 @@
 JAX function and its holoagent_tpu_torch counterpart.  Integer outputs are
 held bit for bit; float sums within 1e-5 (another summation order)."""
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,7 @@ from holoagent_tpu.ops import voxel as jvoxel
 from holoagent_tpu.ops.backproject import backproject as jbackproject
 from holoagent_tpu.utils import camera as jcamera
 from holoagent_tpu_torch import bridge
+from holoagent_tpu_torch.ops import _cuda_build as cuda_build
 from holoagent_tpu_torch.memory import instances as tinst
 from holoagent_tpu_torch.memory import scene as tscene
 from holoagent_tpu_torch.ops import compact as tcompact
@@ -30,6 +33,7 @@ from holoagent_tpu_torch.ops import voxel as tvoxel
 from holoagent_tpu_torch.ops.backproject import backproject as tbackproject
 from holoagent_tpu_torch.ops.resize import resize as tresize
 from holoagent_tpu_torch.utils import camera as tcamera
+from tests._nms_cases import NMS_CASE_NAMES, NMS_FAULTS, nms_case, nms_with_fault
 
 torch.set_num_threads(1)
 T = torch.from_numpy
@@ -209,6 +213,89 @@ def test_mask_ops(rng):
     np.testing.assert_array_equal(
         tmasks.to_disjoint(mt, T(valid)).numpy(), _np(jmasks.to_disjoint(mj, jnp.asarray(valid)))
     )
+
+
+def _nms_tensors(name):
+    boxes, scores, valid, thresh = nms_case(name)
+    return T(boxes), T(scores), T(valid), thresh
+
+
+@pytest.mark.parametrize("name", NMS_CASE_NAMES)
+def test_nms_edge_cases(name):
+    """The plain NMS (what a CPU tensor takes, and what the CUDA kernel is
+    held to) against the JAX package, bit for bit, on each edge case."""
+    boxes, scores, valid, thresh = nms_case(name)
+    kj = _np(jmasks.nms(jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid), thresh))
+    kt = tmasks.nms(T(boxes), T(scores), T(valid), thresh).numpy()
+    np.testing.assert_array_equal(kt, kj)
+    assert not (kt & ~valid).any()
+    if name == "all_invalid":
+        assert not kt.any()
+    elif name == "one_valid":
+        np.testing.assert_array_equal(kt, valid)
+    elif name == "ties_across_words":
+        for lo, hi in ((58, 70), (120, 136), (190, 200)):
+            assert kt[lo:hi].sum() <= 1
+        assert kt[[58, 120, 190]].any()
+    elif name == "iou_at_threshold":  # the 7/10 pairs keep both boxes, the 8/10 pairs one
+        np.testing.assert_array_equal(kt.reshape(40, 2)[:, 1], np.arange(40) % 2 == 0)
+    else:
+        assert kt.sum() < valid.sum()  # something was suppressed
+
+
+@pytest.mark.parametrize("fault", NMS_FAULTS)
+def test_nms_cases_reject_each_fault(fault):
+    """Each broken rule changes the keep mask on some edge case, so the
+    cases can tell a faulty kernel from a right one."""
+    differing = []
+    for name in NMS_CASE_NAMES:
+        if name == "m3072":
+            continue
+        boxes, scores, valid, thresh = _nms_tensors(name)
+        keep = tmasks.nms_ref(boxes, scores, valid, thresh)
+        if not torch.equal(nms_with_fault(boxes, scores, valid, thresh, fault), keep):
+            differing.append(name)
+    assert differing, fault
+
+
+def test_nms_cpu_takes_the_plain_version_and_counts_nothing():
+    boxes, scores, valid, thresh = _nms_tensors("m432")
+    n0, r0 = tmasks.nms.launches, dict(tmasks.nms.routes)
+    keep = tmasks.nms(boxes, scores, valid, thresh)
+    assert torch.equal(keep, tmasks.nms_ref(boxes, scores, valid, thresh)) and keep.dtype == torch.bool
+    assert (tmasks.nms.launches, tmasks.nms.routes) == (n0, r0)
+
+
+def test_nms_wrapper_checks_its_arguments():
+    boxes, scores, valid, _ = _nms_tensors("m48")
+    with pytest.raises(TypeError, match="float32"):
+        tmasks.nms(boxes.double(), scores, valid)
+    with pytest.raises(TypeError, match="float32"):
+        tmasks.nms(boxes, scores.half(), valid)
+    with pytest.raises(TypeError, match="bool"):
+        tmasks.nms(boxes, scores, valid.to(torch.uint8))
+    with pytest.raises(ValueError, match="boxes"):
+        tmasks.nms(boxes[:, :3], scores, valid)
+    with pytest.raises(ValueError, match="boxes"):
+        tmasks.nms(boxes, scores[:-1], valid)
+    with pytest.raises(ValueError, match="boxes"):
+        tmasks.nms(boxes, scores, valid[None])
+    with pytest.raises(ValueError, match="device"):
+        tmasks.nms(boxes, scores.to("meta"), valid)
+
+
+def test_nms_build_key_tracks_its_source():
+    """csrc/masks.cu builds into its own library, keyed by its source; the
+    one-block route's limit is the source's."""
+    path = tmasks.LIB.path()
+    assert path.parent == cuda_build.BUILD_DIR and path.suffix == ".so" and "masks" in path.name
+    assert path != cuda_build.CudaLibrary("quant_matmul.cu", {}).path()
+    text = tmasks.LIB.source.read_text()
+    assert re.search(r'extern "C" int ha_nms\(', text) and len(tmasks.LIB.signatures["ha_nms"]) == 9
+    assert f"constexpr int BLOCK_MAX_M = {tmasks.ONE_BLOCK_MAX_M};" in text
+    # box_iou's arithmetic: each operation rounded once, IEEE division
+    assert "__fdiv_rn" in text and "__fdividef" not in text and "--use_fast_math" not in cuda_build.NVCC_FLAGS
+    assert [tmasks.nms_route(m) for m in (48, 432, 1024, 1025, 3072)] == ["block"] * 3 + ["grid"] * 2
 
 
 @pytest.mark.parametrize("thresh", [0.9, 0.5])
