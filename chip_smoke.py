@@ -43,7 +43,12 @@ Phases (any failure exits non-zero, with no result line):
      12 and of bf16 vit_b at 4 and 32, rejecting each faulty plain version
      there (ties to the higher index, >= for >, invalid candidates that
      suppress), with the kernel, the plain loop and the host's time to
-     issue each timed;
+     issue each timed; then SAM 2.1 Hiera-L's attention shapes (HIERA_ROWS:
+     K2 at head dim 72 on the general route, the pooling blocks with fewer
+     queries than keys) held and timed as K2's cases, with the whole frame's
+     total, and NMS's grid route on SAM 2.1's decoder output at
+     points_per_side 32 (``python3 chip_smoke.py --hiera`` runs the build
+     and this phase alone);
   5. main paths, each with every launch count set to 0 just before it and
      read just after: Mapper.run + finalize over posed 640x480 frames of the
      synthetic three-room scene, SAM vit_b + CLIP ViT-L/14 from a seeded
@@ -244,6 +249,7 @@ from holoagent_tpu_torch.memory.hmsg import HMSGraph  # noqa: E402
 from holoagent_tpu_torch.memory.mapping import Mapper  # noqa: E402
 from holoagent_tpu_torch.models import clip as clip_mod  # noqa: E402
 from holoagent_tpu_torch.models import sam as sam_mod  # noqa: E402
+from holoagent_tpu_torch.models import sam2 as sam2_mod  # noqa: E402
 from holoagent_tpu_torch.models import transformer as tfm  # noqa: E402
 from holoagent_tpu_torch.models import vlm as vlm_mod  # noqa: E402
 from holoagent_tpu_torch.nav import bt_xml  # noqa: E402
@@ -916,6 +922,119 @@ def nms_phase(towers, frame) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# SAM 2.1 Hiera-L's attention: K2 at head dim 72, pooled queries
+# ---------------------------------------------------------------------------
+
+# Every attention shape of the Hiera-L trunk over a 1024 x 1024 frame:
+# (name, windows, heads, Tq, Tk, blocks a frame).  The pooling blocks' queries
+# are pooled 2x2 inside the window (Tq = Tk / 4); the global blocks attend
+# over the 64 x 64 grid.  All take K2's general route, G1 at DM = 80.
+HIERA_ROWS = (
+    ("hiera_s1_w8", 1024, 2, 64, 64, 2),  # blocks 0-1
+    ("hiera_pool_b2", 1024, 4, 16, 64, 1),  # block 2: 256^2 -> 128^2
+    ("hiera_s2_w4", 1024, 4, 16, 16, 5),  # blocks 3-7
+    ("hiera_pool_b8", 1024, 8, 4, 16, 1),  # block 8: 128^2 -> 64^2
+    ("hiera_s3_w16", 16, 8, 256, 256, 32),  # blocks 9-43 but the global ones
+    ("hiera_s3_global", 1, 8, 4096, 4096, 3),  # blocks 23, 33, 43
+    ("hiera_pool_b44", 16, 16, 64, 256, 1),  # block 44: 64^2 -> 32^2
+    ("hiera_s4_w8", 16, 16, 64, 64, 3),  # blocks 45-47
+)
+HIERA_D = 72
+
+
+def hiera_case(name, b, h, tq, tk, gen):
+    """One Hiera attention shape in the layout models/sam2.py launches: k
+    and v the (B, H, Tk, D) views of the block's (B, Tk, 3 H D) qkv
+    projection, q the same view or (pooling blocks) the (B, H, Tq, D) view of
+    the pooled (B, Tq, H D) queries.  Held as K2's other bf16 cases are."""
+    d = HIERA_D
+    qkv = torch.randn(b, tk, 3 * h * d, generator=gen).to("cuda", torch.bfloat16)
+    q, k, v = (z.reshape(b, tk, h, d).transpose(1, 2) for z in qkv.split(h * d, dim=-1))
+    if tq != tk:
+        side = int(round(tk ** 0.5))
+        q = sam2_mod.pool2x2(qkv[..., : h * d].reshape(b, side, side, h * d)).reshape(b, tq, h, d).transpose(1, 2)
+    n0 = fa.flash_attention.pooled
+    out = fa.flash_attention(q, k, v)
+    check(fa.flash_attention.pooled == n0 + (tq != tk), f"{name}: not counted as a pooled-query launch")
+    ref = fa.flash_attention_ref(q, k, v)
+    v_bad = v.clone()
+    v_bad[:, :, :64] = 0
+    res = hold(name, out, ref, [
+        ("the values of the first 64-key tile dropped", fa.flash_attention_ref(q, k, v_bad)),
+        ("the key mask shifted by one (key Tk - 1 dropped)", fa.flash_attention_ref(q, k[:, :, :-1], v[:, :, :-1]))])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res.update(
+        kernel="flash_attention", key=(b, h, tq, d, False, "bf16") + ((tk,) if tk != tq else ()), name=name,
+        route="general", shape=f"B={b} H={h} Tq={tq} Tk={tk} D={d} qkv views bf16",
+        plan=attention_plan("flash_attention", "general", b * h, tq, d=d),
+        ms=time_ms(lambda: fa.flash_attention(q, k, v)),
+        plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v), samples=5, reps=2),
+        library_ms=time_ms(lambda: sdpa(q, k, v)),
+    )
+    res["bound_ms"], res["bound_by"] = bound(4.0 * tq * tk * d * b * h, 2 * b * h * (tq + tk) * d * 2,
+                                             PEAK_BF16_FLOPS)
+    res["ratio_to_library"] = res["ms"] / res["library_ms"]
+    return res
+
+
+def hiera_in_run(sam2, frames) -> dict:
+    """Mean ms a launch, by wrapper and shape key, of K2 and NMS inside
+    ``generate_masks`` with SAM 2.1 over `frames` at points_per_side 32 (CUDA
+    events around each launch: the in-run time, the wrapper's host time in
+    it for short kernels)."""
+    runs = collections.defaultdict(list)
+    fa.flash_attention.trace, masks_mod.nms.trace = [], []
+    try:
+        for f in frames:
+            sam_mod.generate_masks(sam2, torch.as_tensor(f.rgb, dtype=torch.float32).cuda(), points_per_side=32,
+                                   pred_iou_thresh=-10.0, stability_thresh=0.0, impl="flash")
+        torch.cuda.synchronize()
+        for w in (fa.flash_attention, masks_mod.nms):
+            for key, a, b in w.trace:
+                runs[(w.__name__,) + tuple(key)].append(a.elapsed_time(b))
+    finally:
+        fa.flash_attention.trace = masks_mod.nms.trace = None
+    return {k: statistics.mean(v) for k, v in runs.items()}
+
+
+def hiera_phase(sam2, frame, frames=()) -> dict:
+    """Hiera-L's attention rows (HIERA_ROWS), the whole frame's total
+    (each row's time times its blocks; kept under the kernel name "hiera",
+    which no wrapper has), and the NMS grid route on `sam2`'s (SAM 2.1
+    Hiera-L's) decoder output at points_per_side 32 (3,072 candidates); with
+    `frames`, each row's in-run time over SAM 2.1's mask generation on
+    them."""
+    gen = torch.Generator().manual_seed(SEED)
+    cases = {}
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, launches=0)
+    for name, b, h, tq, tk, blocks in HIERA_ROWS:
+        c = hiera_case(name, b, h, tq, tk, gen)
+        c["launches_a_frame"] = blocks
+        log_attention_case(c)
+        cases[name] = c
+        for f in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            total[f] += blocks * c[f]
+        total["launches"] += blocks
+    log(f"[kernel] hiera whole frame: {total['launches']} launches, kernel {total['ms']:.4f} ms  plain "
+        f"{total['plain_ms']:.4f} ms  library {total['library_ms']:.4f} ms ({total['ms'] / total['library_ms']:.2f}x)"
+        f"  bound {total['bound_ms']:.4f} ms: {100 * total['bound_ms'] / total['ms']:.1f}% of bound")
+    cases["hiera_whole_frame"] = dict(kernel="hiera", name="hiera_whole_frame", key=("hiera_whole_frame",), **total)
+    cases.update({c["name"]: c for c in [nms_case_run("nms_sam2_hiera_l_pps32", *decoder_nms_inputs(sam2, frame, 32),
+                                                      {})]})
+    check(cases["nms_sam2_hiera_l_pps32"]["route"] == "grid", "SAM 2's 3,072 candidates take NMS's grid route")
+    if frames:
+        in_run = hiera_in_run(sam2, frames)
+        for c in cases.values():
+            ms = in_run.get((c["kernel"],) + tuple(c["key"]))
+            if ms is not None:
+                c["in_run_ms"] = ms
+                log(f"[kernel] {c['name']}: {ms:.4f} ms a launch in SAM 2.1's mask generation over {len(frames)} frames")
+        check(all("in_run_ms" in cases[name] for name, *_ in HIERA_ROWS), "a Hiera row not launched in the run")
+    torch.cuda.empty_cache()
+    return cases
+
+
+# ---------------------------------------------------------------------------
 # towers and main paths
 # ---------------------------------------------------------------------------
 
@@ -1074,6 +1193,7 @@ def counted(run):
         w.launches, w.trace = 0, []
         for r in getattr(w, "routes", {}):
             w.routes[r] = 0
+    fa.flash_attention.pooled = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1083,6 +1203,7 @@ def counted(run):
     launches = {name: w.launches for name, w in WRAPPERS.items()}
     # and the attention kernels' launches by route, as "<wrapper>.<route>"
     launches.update({f"{name}.{r}": n for name, w in WRAPPERS.items() for r, n in getattr(w, "routes", {}).items()})
+    launches["flash_attention.pooled"] = fa.flash_attention.pooled  # K2's launches with fewer queries than keys
     in_path = {}  # kernel -> {shape key: [launches, device ms summed]}
     for name, w in WRAPPERS.items():
         check(len(w.trace) == w.launches, f"{name}: {len(w.trace)} traced launches, counter {w.launches}")
@@ -1539,10 +1660,19 @@ def launches_a_keyframe(clip, sam, cfg=None) -> dict:
     ``extract_clip_impl`` is (the towers' attention then runs plain, and an
     untiered extraction encodes a keyframe's crops in one batch either
     way).  A batched dispatch makes the towers' launches once for its
-    frames and NMS once a frame."""
-    depth, layers = sam.variant.depth, clip.variant.v_layers
+    frames and NMS once a frame.  A SAM 2 segmenter launches no K1: one K2
+    a Hiera block on the general route, the pooling blocks' counted as
+    pooled-query launches."""
+    layers = clip.variant.v_layers
     sam_k, clip_k = (True, True) if cfg is None else (cfg.pipeline.extract_impl == "flash",
                                                       cfg.pipeline.extract_clip_impl == "flash")
+    if isinstance(sam, sam2_mod.SAM2):
+        plan = sam.encoder.plan
+        return {"flash_attention_2d": 0, "flash_attention": len(plan) * sam_k + layers * clip_k,
+                "flash_attention.general": len(plan) * sam_k,
+                "flash_attention.pooled": sum(b.pool for b in plan) * sam_k,
+                "quant_matmul": 4 * (layers if clip.quant else 0), "nms": 1}
+    depth = sam.variant.depth
     return {"flash_attention_2d": depth * sam_k, "flash_attention": layers * clip_k,
             "quant_matmul": 4 * (depth if sam.quant else 0) + 4 * (layers if clip.quant else 0), "nms": 1}
 
@@ -3951,6 +4081,7 @@ def hold_new_shapes(cases, paths):
     for kernel in WRAPPERS:
         for key in sorted({k for path in paths.values() for k in path["in_path"][kernel] if k not in held}):
             if kernel == "flash_attention":
+                check(len(key) == 6, f"K2 launched with fewer queries than keys at {key}: no Hiera row holds it")
                 b, h, t, d, causal, dt = key
                 c = k2_case(f"k2_b{b}_h{h}_t{t}_d{d}{'_causal' if causal else ''}_{dt}", b, h, t, causal, gen,
                             packed=True, d=d, dtype=dtypes[dt])
@@ -4021,8 +4152,8 @@ def key_route(kernel, key):
     """The route an attention launch of trace key `key` took (None for K3)."""
     dtypes = {v: k for k, v in TYPE_NAMES.items()}
     if kernel == "flash_attention":
-        b, h, t, d, causal, dt = key
-        return fa.k2_route(t, causal, d, dtypes[dt])
+        b, h, t, d, causal, dt = key[:6]
+        return fa.k2_route(t, causal, d, dtypes[dt]) if len(key) == 6 else "general"  # Tk appended: pooled queries
     if kernel == "flash_attention_2d":
         b, heads, gh, gw, d, dt = key
         return fa.k1_route(gh, gw, d, dtypes[dt])
@@ -4130,10 +4261,45 @@ def build_all():
                 log(f"[build] {name}: {line.strip()}")
 
 
+def init_hiera_l():
+    """The seeded bf16 SAM 2.1 Hiera-L (the seed of the main paths' SAM)."""
+    return sam2_mod.init_sam2(sam2_mod.VARIANTS["sam2.1_hiera_l"], seed=SEED + 1, dtype=torch.bfloat16)
+
+
+def sam2_path(clip, sam2, ds, tag):
+    """Mapper.run + finalize with SAM 2.1 Hiera-L as the segmenter
+    (``models.sam.type`` sam2.1_hiera_l) at its generator's 32 x 32 prompts
+    (3,072 candidates: NMS's grid route), the main paths' other settings;
+    every Hiera block's attention counted on K2's general route, the
+    pooling blocks' as pooled-query launches."""
+    cfg_dict = copy.deepcopy(CONFIG)
+    cfg_dict["models"]["sam"].update(type="sam2.1_hiera_l", points_per_side=32)
+    cfg = from_dict(cfg_dict)
+    expect = launches_a_keyframe(clip, sam2, cfg)
+    log(f"[{tag}] SAM 2.1 {sam2.variant.name} ({len(sam2.encoder.plan)} blocks, head dim {HIERA_D}), CLIP "
+        f"{clip.variant.name}, bf16: expected launches a keyframe {expect}")
+    path = main_path(clip, sam2, ds, cfg, tag, expect)
+    check(set(path["in_path"]["nms"]) == {(3 * 32 * 32,)}, f"{tag}: NMS shapes {set(path['in_path']['nms'])}")
+    return path
+
+
+def hiera_only() -> int:
+    """``python3 chip_smoke.py --hiera``: the build and the SAM 2 Hiera-L
+    attention phase alone, then its cases as one JSON line."""
+    build_all()
+    ds = mapping_frames()
+    cases = hiera_phase(init_hiera_l(), ds[0], [ds[i] for i in range(0, len(ds), CONFIG["pipeline"]["skip_frames"])])
+    print(json.dumps({k: {f: v for f, v in c.items() if isinstance(v, (int, float, str, tuple))}
+                      for k, c in cases.items()}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--hiera"]:
+        return hiera_only()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -4175,6 +4341,10 @@ def main() -> int:
     stamp("NMS kernel phase")
     del sam_h
     stamp("set-up and tower checks")
+    torch.cuda.empty_cache()
+    sam2 = init_hiera_l()
+    cases.update(hiera_phase(sam2, ds[0]))
+    stamp("SAM 2 Hiera-L attention phase")
     paths = {"bf16": main_path(clip, sam, ds, cfg, "main", {"flash_attention_2d": 12, "flash_attention": 24,
                                                              "quant_matmul": 0, "nms": 1})}
     q8_expect = {"flash_attention_2d": 12, "flash_attention": 24, "quant_matmul": 144, "nms": 1}
@@ -4183,6 +4353,10 @@ def main() -> int:
         qclip, qsam, ds, qcfg, "w8a8-pallas", q8_expect, paths["w8a8"]["ms"].keyframe_feats)
     paths["(k) vit_h W8A8: Mapper.run"] = operating_point_path(qclip, qsam_h, ds, hcfg, "vit_h-w8a8")
     del qsam_h
+    paths["(k2) SAM 2.1 Hiera-L: Mapper.run"] = sam2_path(clip, sam2, ds, "sam2")
+    del sam2
+    paths["(k2) SAM 2.1 Hiera-L: Mapper.run"].pop("ms")
+    torch.cuda.empty_cache()
     paths.update(batched_path(clip, sam, ds, CONFIG, "batched"))
     paths["(l) batched extraction, W8A8, pairs"] = batched_w8a8_extraction(
         qclip, qsam, ds, qcfg, paths["w8a8"]["ms"].keyframe_feats, "batched-w8a8")

@@ -10,6 +10,7 @@ from ..dataloader.synthetic import SyntheticDataset, SyntheticScene
 from ..device import DeviceLike, dtype_of, resolve
 from ..models import clip as clip_mod
 from ..models import sam as sam_mod
+from ..models import sam2 as sam2_mod
 from ..models.tokenizer import SimpleTokenizer
 
 
@@ -25,11 +26,11 @@ def load_models(cfg: Config, device: DeviceLike = None):
     the image towers are then quantized (W8A8: ``quantize_clip`` /
     ``quantize_sam``), a checkpoint from its float32 values as the
     reference quantizes its converted params; the text tower stays float,
-    as the reference's.
+    as the reference's.  A ``models.sam.type`` of ``models/sam2.py``'s
+    VARIANTS (``sam2.1_hiera_l``) gives a seeded SAM 2 in its place.
     Returns ``(clip, sam, clip_variant, sam_variant, text)``."""
     dev = resolve(device)
     cv = clip_mod.VARIANTS[cfg.models.clip.type]
-    sv = sam_mod.VARIANTS[cfg.models.sam.type]
     c, sc = cfg.models.clip, cfg.models.sam
     dtype = sam_dtype = dtype_of(c.dtype)
     if c.checkpoint:
@@ -39,6 +40,13 @@ def load_models(cfg: Config, device: DeviceLike = None):
         clip, text = clip_mod.init_clip(cv, seed=cfg.main.seed, dtype=dtype, device=dev)
     if c.quant:
         clip = clip_mod.quantize_clip(clip, dtype=dtype)
+    if sc.type in sam2_mod.VARIANTS:
+        sv = sam2_mod.VARIANTS[sc.type]
+        if sc.checkpoint or sc.quant:
+            raise ValueError(f"{sc.type}: the port converts no SAM 2 checkpoint and quantizes no SAM 2 encoder")
+        sam = sam2_mod.init_sam2(sv, seed=cfg.main.seed + 1, dtype=sam_dtype, device=dev)
+        return clip, sam, cv, sv, text
+    sv = sam_mod.VARIANTS[sc.type]
     if sc.checkpoint:
         sam = sam_mod.load_checkpoint(sc.checkpoint, sv, dtype=torch.float32 if sc.quant else sam_dtype, device=dev)
     else:

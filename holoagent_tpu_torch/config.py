@@ -64,7 +64,7 @@ class SamConfig:
     mask generation operating point from
     reference fsr_vln/config/semantic_scene_reconstruction_ic4f.yaml:13-21)."""
 
-    type: str = "vit_b"  # vit_b | vit_l | vit_h
+    type: str = "vit_b"  # vit_b | vit_l | vit_h (models.sam) | sam2.1_hiera_l (models.sam2)
     checkpoint: str = ""
     points_per_side: int = 12
     pred_iou_thresh: float = 0.88

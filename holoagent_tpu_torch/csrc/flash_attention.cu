@@ -199,6 +199,13 @@
 //     dim of 20: 40-byte rows) element by element.  The C entry picks the
 //     instantiation (ALIGNED) from the pointers and strides; nothing is
 //     copied.
+//   - SAM 2's Hiera trunk runs every attention here, G1 at D = 72 (DM =
+//     80, the instantiation K2's other head dims already build): its windows
+//     (T = 16, 64, 256), its global blocks (T = 4096) and, with a key count
+//     of their own (tk), its three stage transitions, whose queries
+//     are pooled 2x2 inside the window and whose keys are not (tq = tk / 4:
+//     16 / 64, 4 / 16, 64 / 256).  Queries and keys have their own counts
+//     in the body (t, tk); a block's rows past tq are never stored.
 //
 // Left for later: a persistent tile loop and intra-warpgroup overlap of the
 // next tile's QK^T with this tile's softmax in the global kernel; wgmma in
@@ -1572,10 +1579,11 @@ __device__ __forceinline__ void add_bias(float (&s)[NG][4], const uint32_t* tab,
   }
 }
 
-// q, k, v (B, H, T, d) of T (bf16 or float) at the given strides, last dim
-// contiguous; o (B, T, H, d), contiguous.  Block (x, y): head x = b * H +
-// h, query tile y of GEN_BQ rows (with causal the heaviest, last, tile
-// first); warp w owns rows 16 w .. 16 w + 15 of it.  The key tiles stream
+// q (B, H, T, d), k and v (B, H, TK, d) of T (bf16 or float) at the given
+// strides, last dim contiguous; o (B, T, H, d), contiguous.  TK == T but in
+// K2's pooled-query launches (fewer queries than keys, no bias, no mask).
+// Block (x, y): head x = b * H + h, query tile y of GEN_BQ rows (with causal
+// the heaviest, last, tile first); warp w owns rows 16 w .. 16 w + 15 of it.  The key tiles stream
 // through a GEN_STAGES-deep ring: tile i + 1 is in flight while tile i is
 // computed, one barrier a tile.  REL_POS adds bias_h[q, ky] + bias_w[q, kx]
 // on any grid, (ky, kx) from a per-tile table; the block's 64 bias rows sit
@@ -1586,7 +1594,7 @@ __device__ __forceinline__ void add_bias(float (&s)[NG][4], const uint32_t* tab,
 template <typename T, bool REL_POS, bool CAUSAL, int DM, bool ALIGNED>
 __device__ __forceinline__ void gen_body(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                                          T* __restrict__ o, Strides sq, Strides sk, Strides sv, int heads, int t,
-                                         int d, float scale, RelPos rp) {
+                                         int tk, int d, float scale, RelPos rp) {
   static_assert(!(REL_POS && CAUSAL), "the bias and the causal mask never meet");
   using C = GenCfg<T, DM>;
   constexpr int BK = C::BK, NG = BK / 8;
@@ -1602,7 +1610,7 @@ __device__ __forceinline__ void gen_body(const T* __restrict__ q, const T* __res
   const int q0 = (CAUSAL ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * GEN_BQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
   const int r0 = q0 + warp * 16 + g;  // this thread's rows r0 and r0 + 8
-  const int key_end = CAUSAL ? min(t, q0 + GEN_BQ) : t;
+  const int key_end = CAUSAL ? min(t, q0 + GEN_BQ) : tk;
   const int tiles = (key_end + BK - 1) / BK;
   q += b * sq.b + h * sq.h;
   k += b * sk.b + h * sk.h;
@@ -1612,13 +1620,13 @@ __device__ __forceinline__ void gen_body(const T* __restrict__ q, const T* __res
   const int ph = bias_pitch(rp.grid_h), pw = bias_pitch(rp.grid_w);
   auto stage_tile = [&](int i) {
     const int s = i % GEN_STAGES, key0 = i * BK;
-    stage_rows<T, DM, BK, ALIGNED>(stage_k(s), k, sk.t, key0, t, d);
-    stage_rows<T, DM, BK, ALIGNED>(stage_v(s), v, sv.t, key0, t, d);
+    stage_rows<T, DM, BK, ALIGNED>(stage_k(s), k, sk.t, key0, tk, d);
+    stage_rows<T, DM, BK, ALIGNED>(stage_v(s), v, sv.t, key0, tk, d);
     if constexpr (REL_POS) {
       if (threadIdx.x < BK) {
         const int key = key0 + threadIdx.x, ky = key / rp.grid_w;
         stage_tab(s)[threadIdx.x] =
-            key < t ? static_cast<uint32_t>(ky) | static_cast<uint32_t>(key - ky * rp.grid_w) << 16 : 0u;
+            key < tk ? static_cast<uint32_t>(ky) | static_cast<uint32_t>(key - ky * rp.grid_w) << 16 : 0u;
       }
     }
   };
@@ -1703,13 +1711,13 @@ __device__ __forceinline__ void gen_body(const T* __restrict__ q, const T* __res
                        static_cast<long long>(grow1 - grow0) * rp.grid_w);
         }
       }
-      if (key0 + BK > t || (CAUSAL && key0 + BK - 1 > warp_row)) {  // keys past t, or past a row
+      if (key0 + BK > tk || (CAUSAL && key0 + BK - 1 > warp_row)) {  // keys past tk, or past a row
 #pragma unroll
         for (int j = 0; j < NG; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int key = key0 + j * 8 + tg * 2 + (e & 1);
-            if (key >= t || (CAUSAL && key > r0 + 8 * (e >> 1))) sf[j][e] = NEG_INF;
+            if (key >= tk || (CAUSAL && key > r0 + 8 * (e >> 1))) sf[j][e] = NEG_INF;
           }
       }
       // the online softmax in log2 units: one FFMA and one ex2 a score
@@ -1782,16 +1790,16 @@ template <bool REL_POS, bool CAUSAL, int DM, bool ALIGNED>
 __global__ void __launch_bounds__(GEN_THREADS, DM == 16 ? 4 : DM <= 64 ? 3 : 2)
 g1_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, Strides sq, Strides sk,
-               Strides sv, int heads, int t, int d, float scale, RelPos rp) {
-  gen_body<__nv_bfloat16, REL_POS, CAUSAL, DM, ALIGNED>(q, k, v, o, sq, sk, sv, heads, t, d, scale, rp);
+               Strides sv, int heads, int t, int tk, int d, float scale, RelPos rp) {
+  gen_body<__nv_bfloat16, REL_POS, CAUSAL, DM, ALIGNED>(q, k, v, o, sq, sk, sv, heads, t, tk, d, scale, rp);
 }
 
 template <bool REL_POS, bool CAUSAL, int DM, bool ALIGNED>
 __global__ void __launch_bounds__(GEN_THREADS, G2_MIN_BLOCKS)
 g2_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                 float* __restrict__ o, Strides sq, Strides sk, Strides sv, int heads, int t, int d, float scale,
-                 RelPos rp) {
-  gen_body<float, REL_POS, CAUSAL, DM, ALIGNED>(q, k, v, o, sq, sk, sv, heads, t, d, scale, rp);
+                 float* __restrict__ o, Strides sq, Strides sk, Strides sv, int heads, int t, int tk, int d,
+                 float scale, RelPos rp) {
+  gen_body<float, REL_POS, CAUSAL, DM, ALIGNED>(q, k, v, o, sq, sk, sv, heads, t, tk, d, scale, rp);
 }
 
 template <typename T, bool REL_POS, bool CAUSAL, int DM, bool ALIGNED>
@@ -1821,7 +1829,7 @@ cudaError_t gen_allow(size_t* smem, int grid_h, int grid_w) {
 
 template <typename T, bool REL_POS, bool CAUSAL, int DM, bool ALIGNED>
 int launch_gen(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk, Strides sv, int b,
-               int h, int t, int d, float scale, RelPos rp, cudaStream_t stream) {
+               int h, int t, int tk, int d, float scale, RelPos rp, cudaStream_t stream) {
   size_t smem = 0;
   const cudaError_t err = gen_allow<T, REL_POS, CAUSAL, DM, ALIGNED>(&smem, rp.grid_h, rp.grid_w);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1829,20 +1837,20 @@ int launch_gen(const void* q, const void* k, const void* v, void* o, Strides sq,
   const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k), *vt = static_cast<const T*>(v);
   if constexpr (sizeof(T) == 4)
     g2_tf32x3_kernel<REL_POS, CAUSAL, DM, ALIGNED><<<grid, GEN_THREADS, smem, stream>>>(
-        qt, kt, vt, static_cast<T*>(o), sq, sk, sv, h, t, d, scale, rp);
+        qt, kt, vt, static_cast<T*>(o), sq, sk, sv, h, t, tk, d, scale, rp);
   else
     g1_bf16_kernel<REL_POS, CAUSAL, DM, ALIGNED><<<grid, GEN_THREADS, smem, stream>>>(
-        qt, kt, vt, static_cast<T*>(o), sq, sk, sv, h, t, d, scale, rp);
+        qt, kt, vt, static_cast<T*>(o), sq, sk, sv, h, t, tk, d, scale, rp);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The instantiation for a head dim: DM = d rounded up to 16.
 template <typename T, bool REL_POS, bool CAUSAL, bool ALIGNED>
 int launch_gen_d(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk, Strides sv, int b,
-                 int h, int t, int d, float scale, RelPos rp, cudaStream_t stream) {
+                 int h, int t, int tk, int d, float scale, RelPos rp, cudaStream_t stream) {
 #define HA_GEN_DM(DM)                                                                                          \
   case DM:                                                                                                     \
-    return launch_gen<T, REL_POS, CAUSAL, DM, ALIGNED>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream);
+    return launch_gen<T, REL_POS, CAUSAL, DM, ALIGNED>(q, k, v, o, sq, sk, sv, b, h, t, tk, d, scale, rp, stream);
   switch ((d + 15) & ~15) {
     HA_GEN_DM(16)
     HA_GEN_DM(32)
@@ -1859,15 +1867,16 @@ int launch_gen_d(const void* q, const void* k, const void* v, void* o, Strides s
 
 template <typename T>
 int launch_gen_any(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk, Strides sv, int b,
-                   int h, int t, int d, int causal, bool aligned, float scale, RelPos rp, cudaStream_t stream) {
+                   int h, int t, int tk, int d, int causal, bool aligned, float scale, RelPos rp,
+                   cudaStream_t stream) {
   if (rp.bias_h != nullptr)
-    return aligned ? launch_gen_d<T, true, false, true>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream)
-                   : launch_gen_d<T, true, false, false>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream);
+    return aligned ? launch_gen_d<T, true, false, true>(q, k, v, o, sq, sk, sv, b, h, t, tk, d, scale, rp, stream)
+                   : launch_gen_d<T, true, false, false>(q, k, v, o, sq, sk, sv, b, h, t, tk, d, scale, rp, stream);
   if (causal)
-    return aligned ? launch_gen_d<T, false, true, true>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream)
-                   : launch_gen_d<T, false, true, false>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream);
-  return aligned ? launch_gen_d<T, false, false, true>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream)
-                 : launch_gen_d<T, false, false, false>(q, k, v, o, sq, sk, sv, b, h, t, d, scale, rp, stream);
+    return aligned ? launch_gen_d<T, false, true, true>(q, k, v, o, sq, sk, sv, b, h, t, tk, d, scale, rp, stream)
+                   : launch_gen_d<T, false, true, false>(q, k, v, o, sq, sk, sv, b, h, t, tk, d, scale, rp, stream);
+  return aligned ? launch_gen_d<T, false, false, true>(q, k, v, o, sq, sk, sv, b, h, t, tk, d, scale, rp, stream)
+                 : launch_gen_d<T, false, false, false>(q, k, v, o, sq, sk, sv, b, h, t, tk, d, scale, rp, stream);
 }
 
 // Whether every panel a general launch reads may be staged by 16-byte
@@ -1998,23 +2007,27 @@ extern "C" int ha_flash_attention_long(const void* q, const void* k, const void*
 }
 
 // K1's and K2's general route, every input the tensor-core routes do not
-// take: q, k, v (b, h, t, d) float32 (bf16 == 0: G2) or bf16 (bf16 != 0:
-// G1) at element strides s*_b, s*_h, s*_t (last dim contiguous; any
-// alignment: where q, k, v start on 16 bytes and every stride is a multiple
-// of 16 bytes the tiles are staged by 16-byte cp.async, else element by
-// element), 1 <= d <= GEN_D_MAX; o (b, t, h, d) of the same type,
-// contiguous.  With bias_h non-null (K1): bias_h (b*h, t, grid_h) and
-// bias_w (b*h, t, grid_w) f32, contiguous, t == grid_h * grid_w, any grid
-// up to GEN_GRID_MAX a side, causal 0.  Without (K2): causal != 0 masks key
-// > query.  Returns the cudaError_t of the launch.
+// take: q (b, h, t, d), k and v (b, h, tk, d), float32 (bf16 == 0: G2) or
+// bf16 (bf16 != 0: G1) at element strides s*_b, s*_h, s*_t (last dim
+// contiguous; any alignment: where q, k, v start on 16 bytes and every
+// stride is a multiple of 16 bytes the tiles are staged by 16-byte
+// cp.async, else element by element), 1 <= d <= GEN_D_MAX; o (b, t, h, d)
+// of the same type, contiguous.  tk == t but in K2's pooled-query launches
+// (Hiera's stage transitions: fewer queries than keys, no bias, no mask).
+// With bias_h non-null (K1): bias_h (b*h, t, grid_h) and bias_w (b*h, t,
+// grid_w) f32, contiguous, t == grid_h * grid_w, any grid up to
+// GEN_GRID_MAX a side, causal 0.  Without (K2): causal != 0 masks key >
+// query.  Returns the cudaError_t of the launch.
 extern "C" int ha_flash_attention_general(const void* q, const void* k, const void* v, const void* bias_h,
                                           const void* bias_w, void* o, long long sq_b, long long sq_h,
                                           long long sq_t, long long sk_b, long long sk_h, long long sk_t,
-                                          long long sv_b, long long sv_h, long long sv_t, int b, int h, int t, int d,
-                                          int grid_h, int grid_w, int causal, int bf16, float scale, void* stream) {
+                                          long long sv_b, long long sv_h, long long sv_t, int b, int h, int t, int tk,
+                                          int d, int grid_h, int grid_w, int causal, int bf16, float scale,
+                                          void* stream) {
   const bool rel_pos = bias_h != nullptr;
-  if (d <= 0 || d > GEN_D_MAX || t <= 0 || b <= 0 || h <= 0 || static_cast<long long>(b) * h > 0x7fffffff ||
-      (t + GEN_BQ - 1) / GEN_BQ > 65535 ||
+  if (d <= 0 || d > GEN_D_MAX || t <= 0 || tk <= 0 || b <= 0 || h <= 0 ||
+      static_cast<long long>(b) * h > 0x7fffffff || (t + GEN_BQ - 1) / GEN_BQ > 65535 ||
+      (tk != t && (rel_pos || causal)) ||
       (rel_pos && (causal || bias_w == nullptr || grid_h <= 0 || grid_w <= 0 || grid_h > GEN_GRID_MAX ||
                    grid_w > GEN_GRID_MAX || static_cast<long long>(grid_h) * grid_w != t)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2024,8 +2037,8 @@ extern "C" int ha_flash_attention_general(const void* q, const void* k, const vo
                             : RelPos{nullptr, nullptr, 0, 0};
   const bool aligned = gen_aligned(q, k, v, sq, sk, sv, bf16 ? 2 : 4);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_gen_any<__nv_bfloat16>(q, k, v, o, sq, sk, sv, b, h, t, d, causal, aligned, scale, rp, s)
-              : launch_gen_any<float>(q, k, v, o, sq, sk, sv, b, h, t, d, causal, aligned, scale, rp, s);
+  return bf16 ? launch_gen_any<__nv_bfloat16>(q, k, v, o, sq, sk, sv, b, h, t, tk, d, causal, aligned, scale, rp, s)
+              : launch_gen_any<float>(q, k, v, o, sq, sk, sv, b, h, t, tk, d, causal, aligned, scale, rp, s);
 }
 
 // The general route's plan for (bh heads, t tokens) at head dim d into

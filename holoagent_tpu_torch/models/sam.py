@@ -403,24 +403,7 @@ def decode_masks(
     tokens = torch.cat([out_tokens.expand(pcount, nm + 1, d), prompt_tokens.to(dtype)], dim=1)
     src = (image_emb + no_mask_emb).reshape(1, g * g, d).expand(pcount, g * g, d).to(dtype)
     pos = img_pe.reshape(1, g * g, d).expand(pcount, g * g, d).to(dtype)
-    q = tokens
-    heads = v.decoder_heads
-    for i, lp in enumerate(dec.layers):
-        if i == 0:
-            q = q + _attn(lp.self_attn, q, q, q, heads)
-        else:
-            qp = q + tokens
-            q = q + _attn(lp.self_attn, qp, qp, q, heads)
-        q = _ln(q, lp.norm1_g, lp.norm1_b)
-        q = q + _attn(lp.cross_t2i, q + tokens, src + pos, src, heads)
-        q = _ln(q, lp.norm2_g, lp.norm2_b)
-        h = torch.relu(lp.mlp1(q).float()).to(dtype)
-        q = q + lp.mlp2(h)
-        q = _ln(q, lp.norm3_g, lp.norm3_b)
-        src = src + _attn(lp.cross_i2t, src + pos, q + tokens, q, heads)
-        src = _ln(src, lp.norm4_g, lp.norm4_b)
-    q = q + _attn(dec.final_t2i, q + tokens, src + pos, src, heads)
-    q = _ln(q, dec.norm_final_g, dec.norm_final_b)
+    q, src = two_way(dec, tokens, src, pos, v.decoder_heads)
 
     iou_out = q[:, 0]
     mask_toks = q[:, 1 : nm + 1]
@@ -432,6 +415,31 @@ def decode_masks(
     logits = torch.einsum("pnc,phwc->pnhw", hyper.float(), u.float())
     iou_pred = _mlp3(dec.iou_head, iou_out).float()
     return logits, iou_pred
+
+
+def two_way(dec: nn.Module, tokens: torch.Tensor, src: torch.Tensor, pos: torch.Tensor, heads: int):
+    """The two-way transformer (SAM's and SAM 2's): the prompt tokens (P,
+    K, D) and the image tokens `src` (P, N, D) with their positional
+    encoding `pos`, through `dec.layers` (the first layer's self-attention
+    without the tokens' own encoding), then the final token-to-image
+    attention.  Returns (tokens, src) after it."""
+    q = tokens
+    for i, lp in enumerate(dec.layers):
+        if i == 0:
+            q = q + _attn(lp.self_attn, q, q, q, heads)
+        else:
+            qp = q + tokens
+            q = q + _attn(lp.self_attn, qp, qp, q, heads)
+        q = _ln(q, lp.norm1_g, lp.norm1_b)
+        q = q + _attn(lp.cross_t2i, q + tokens, src + pos, src, heads)
+        q = _ln(q, lp.norm2_g, lp.norm2_b)
+        h = torch.relu(lp.mlp1(q).float()).to(q.dtype)
+        q = q + lp.mlp2(h)
+        q = _ln(q, lp.norm3_g, lp.norm3_b)
+        src = src + _attn(lp.cross_i2t, src + pos, q + tokens, q, heads)
+        src = _ln(src, lp.norm4_g, lp.norm4_b)
+    q = q + _attn(dec.final_t2i, q + tokens, src + pos, src, heads)
+    return _ln(q, dec.norm_final_g, dec.norm_final_b), src
 
 
 # ---------------------------------------------------------------------------
@@ -456,6 +464,20 @@ class SAM(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.encoder.patch_w.dtype
+
+    def image_features(self, images01: torch.Tensor, impl: str = "xla", timer: Optional[StageTimer] = None):
+        """The mask.encoder span's work over (F, H, W, 3) frames in [0, 1]:
+        the (F, g, g, D) image embeddings (``models/sam2.py::SAM2`` gives its
+        own features by the same method)."""
+        return encode_image(self.encoder, preprocess(images01, self.variant.img_size), self.variant, impl=impl)
+
+    def decode_grid(self, emb: torch.Tensor, points_per_side: int):
+        """The points_per_side^2 grid of one-point prompts (plus a padding
+        point each, the SAM convention) against one image embedding (g, g,
+        D): (logits (P, 4, 4g, 4g), iou_pred (P, 4)), float32."""
+        pe = image_pe(self.prompt, emb.shape[0]).to(emb.dtype)
+        sparse = grid_prompts(self.prompt, points_per_side, emb.device).to(emb.dtype)
+        return decode_masks(self.decoder, emb, pe, sparse, self.prompt.no_mask.to(emb.dtype), self.variant)
 
 
 def _fill(p: torch.Tensor, gen: torch.Generator, std: Optional[float] = None, value: float = 0.0):
@@ -573,7 +595,7 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 @torch.no_grad()
 def generate_masks(
-    sam: SAM,
+    sam: SAM,  # or a SAM 2 (models/sam2.py::SAM2)
     image01: torch.Tensor,  # (H, W, 3) float in [0,1]
     points_per_side: int = 12,
     pred_iou_thresh: float = 0.88,
@@ -590,15 +612,14 @@ def generate_masks(
     num.  H'xW' = `mask_hw` or the input resolution.  A `timer` records the
     sub-stages mask.encoder, mask.decoder, mask.nms and mask.select."""
     with stage(timer, "mask.encoder"):
-        x = preprocess(image01[None], sam.variant.img_size)
-        emb = encode_image(sam.encoder, x, sam.variant, impl=impl)[0]  # (g, g, D)
+        emb = sam.image_features(image01[None], impl, timer)[0]
     return _masks_from_embedding(sam, emb, image01.shape[:2], points_per_side, pred_iou_thresh, stability_thresh,
                                  min_area, nms_iou, max_masks, mask_hw, timer)
 
 
 @torch.no_grad()
 def generate_masks_batched(
-    sam: SAM,
+    sam: SAM,  # or a SAM 2
     images01: torch.Tensor,  # (F, H, W, 3) float in [0,1]
     points_per_side: int = 12,
     pred_iou_thresh: float = 0.88,
@@ -615,8 +636,7 @@ def generate_masks_batched(
     decoder, NMS and selection run frame by frame.  Returns one dict a
     frame, each equal to ``generate_masks`` on that frame."""
     with stage(timer, "mask.encoder"):
-        x = preprocess(images01, sam.variant.img_size)
-        embs = encode_image(sam.encoder, x, sam.variant, impl=impl)  # (F, g, g, D)
+        embs = sam.image_features(images01, impl, timer)
     return [
         _masks_from_embedding(sam, emb, images01.shape[1:3], points_per_side, pred_iou_thresh, stability_thresh,
                               min_area, nms_iou, max_masks, mask_hw, timer)
@@ -624,15 +644,16 @@ def generate_masks_batched(
     ]
 
 
-def _masks_from_embedding(sam: SAM, emb: torch.Tensor, hw: Tuple[int, int], points_per_side: int,
+def _masks_from_embedding(sam: SAM, emb, hw: Tuple[int, int], points_per_side: int,
                           pred_iou_thresh: float, stability_thresh: float, min_area: float, nms_iou: float,
                           max_masks: int, mask_hw: Optional[Tuple[int, int]], timer: Optional[StageTimer]):
-    """``generate_masks`` after the encoder: one image's (g, g, D) embedding
-    -> its fixed-budget masks (decoder, NMS, selection)."""
-    dev = emb.device
+    """``generate_masks`` after the encoder: one image's features (one frame
+    of ``sam.image_features``: SAM's (g, g, D) embedding, or a SAM 2
+    model's tuple) -> its fixed-budget masks (decoder, NMS, selection)."""
     mask_hw = mask_hw or tuple(hw)
     with stage(timer, "mask.decoder"):
         logits, iou_pred = _decode_grid(sam, emb, points_per_side)
+    dev = logits.device
     with stage(timer, "mask.nms"):
         # multimask: drop token 0 (single-mask head), keep 1..3
         logits = logits[:, 1:].reshape(-1, logits.shape[-2], logits.shape[-1])
@@ -664,26 +685,29 @@ def _masks_from_embedding(sam: SAM, emb: torch.Tensor, hw: Tuple[int, int], poin
     }
 
 
-def _decode_grid(sam: SAM, emb: torch.Tensor, points_per_side: int):
-    """Decode the points_per_side^2 grid of one-point prompts (plus a padding
-    point each, the SAM convention) against one image embedding."""
-    v = sam.variant
-    dev = emb.device
-    g = emb.shape[0]
-    pe = image_pe(sam.prompt, g).to(emb.dtype)
-
+def grid_prompts(prompt: PromptEncoder, points_per_side: int, device) -> torch.Tensor:
+    """The (P, 2, D) sparse tokens of the points_per_side^2 grid of
+    one-point prompts, each with a padding point (the SAM convention), in
+    row-major order over the grid."""
     pps = points_per_side
-    t = (torch.arange(pps, dtype=torch.float32, device=dev) + 0.5) / pps
+    t = (torch.arange(pps, dtype=torch.float32, device=device) + 0.5) / pps
     gy, gx = torch.meshgrid(t, t, indexing="ij")
     pts = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)  # (P, 2) xy
     pcount = pps * pps
     points = torch.stack([pts, torch.zeros_like(pts)], dim=1)  # (P, 2, 2)
     labels = torch.stack(
-        [torch.ones(pcount, dtype=torch.int32, device=dev), -torch.ones(pcount, dtype=torch.int32, device=dev)],
+        [torch.ones(pcount, dtype=torch.int32, device=device), -torch.ones(pcount, dtype=torch.int32, device=device)],
         dim=1,
     )
-    sparse = encode_points(sam.prompt, points, labels).to(emb.dtype)
-    return decode_masks(sam.decoder, emb, pe, sparse, sam.prompt.no_mask.to(emb.dtype), v)
+    return encode_points(prompt, points, labels)
+
+
+def _decode_grid(sam: SAM, emb, points_per_side: int):
+    """The mask stage's decoder call: the model's ``decode_grid`` over one
+    image's features (SAM's embedding or a SAM 2 model's tuple).  A module
+    function, so that a caller can wrap the decoder's output in one place
+    (``portbench/cells/mapping.py`` captures it there)."""
+    return sam.decode_grid(emb, points_per_side)
 
 
 # ---------------------------------------------------------------------------

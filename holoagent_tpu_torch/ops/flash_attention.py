@@ -35,7 +35,8 @@ the shape and the dtype before the launch (``k1_route``, ``k2_route``;
   without the bias, its key loop ending at the diagonal tile with causal);
 - everything else, for either kernel: "general" (float32 towers, the tiny
   and fixture towers' head dims 16 and 32, a causal layer at 80, K1's other
-  grids): two streaming kernels on the tensor cores behind one C entry, G1
+  grids, SAM 2's Hiera trunk at head dim 72, and K2 with fewer queries than
+  keys): two streaming kernels on the tensor cores behind one C entry, G1
   for bf16 (``mma.sync`` bf16, K and V staged in bf16) and G2 for float32
   (3xTF32 ``mma.sync``: float32's accuracy with TF32 off), each at the head
   dim rounded up to 16 (``GENERAL_DMS``), 64 queries a block
@@ -90,10 +91,13 @@ RES_HW_MAX = 128  # largest h + w of K1's resident route (N <= T_MAX): RES_HW_MA
 def flash_attention_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
 ) -> torch.Tensor:
-    """Dense attention over (B, H, T, D) with the kernel's semantics."""
+    """Dense attention of q (B, H, Tq, D) over k and v (B, H, Tk, D) with
+    the kernel's semantics; the causal mask takes Tq == Tk."""
     t, d = q.shape[-2], q.shape[-1]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * d**-0.5
     if causal:
+        if k.shape[-2] != t:
+            raise ValueError(f"the causal mask takes as many queries as keys, got {t} and {k.shape[-2]}")
         idx = torch.arange(t, device=q.device)
         s = s.masked_fill(idx[None, :] > idx[:, None], NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
@@ -124,7 +128,7 @@ LIB = CudaLibrary("flash_attention.cu", {
     "ha_flash_attention_2d": [_p, _p, _p, _p, _p, _p, *[_l] * 9, _i, _i, _i, _i, _i, _i, _f, _p],
     "ha_flash_attention_resident": [_p, _p, _p, _p, *[_l] * 9, _i, _i, _i, _i, _i, _f, _p],
     "ha_flash_attention_long": [_p, _p, _p, _p, *[_l] * 9, _i, _i, _i, _i, _i, _f, _p],
-    "ha_flash_attention_general": [_p, _p, _p, _p, _p, _p, *[_l] * 9, *[_i] * 8, _f, _p],
+    "ha_flash_attention_general": [_p, _p, _p, _p, _p, _p, *[_l] * 9, *[_i] * 9, _f, _p],
     "ha_flash_attention_general_plan": [*[_i] * 7, ctypes.POINTER(ctypes.c_int)],
     "ha_flash_attention_plan": [_i, _i, _i, _i, _i, ctypes.POINTER(ctypes.c_int)],
     "ha_flash_attention_global_plan": [_i, _i, _i, _i, ctypes.POINTER(ctypes.c_int)],
@@ -318,8 +322,8 @@ def flash_attention_2d(
     lib, stream = LIB.load(), torch.cuda.current_stream(q.device)
     key = (b, heads, h, w, d, TYPE_NAMES[q.dtype])
     if route == "general":
-        launch(flash_attention_2d, key, stream, lib.ha_flash_attention_general, *ptrs, *sq, *sk, *sv, b, heads, n, d,
-               h, w, 0, int(q.dtype == torch.bfloat16), d**-0.5, route=route)
+        launch(flash_attention_2d, key, stream, lib.ha_flash_attention_general, *ptrs, *sq, *sk, *sv, b, heads, n, n,
+               d, h, w, 0, int(q.dtype == torch.bfloat16), d**-0.5, route=route)
     else:
         launch(flash_attention_2d, key, stream, lib.ha_flash_attention_2d, *ptrs, *sq, *sk, *sv, b, heads, n, d, h, w,
                d**-0.5, route=route)
@@ -332,31 +336,39 @@ flash_attention_2d.trace = None
 
 
 def flash_attention(
-    q: torch.Tensor,  # (B, H, T, D)
-    k: torch.Tensor,
+    q: torch.Tensor,  # (B, H, Tq, D)
+    k: torch.Tensor,  # (B, H, Tk, D)
     v: torch.Tensor,
     causal: bool = False,
 ) -> torch.Tensor:
     """K2: blockwise attention, optional causal mask (JAX reference:
     holoagent_tpu/ops/flash_attention.py::flash_attention).  Any T: the
-    kernel masks the ragged key edge itself.  On the card the output is the
-    (B, H, T, D) view of a (B, T, H, D) buffer."""
-    if k.shape != q.shape or v.shape != q.shape:
+    kernel masks the ragged key edge itself.  The queries may be fewer than
+    the keys (Tq < Tk, no causal mask: Hiera's pooled-query blocks, Tq = Tk
+    / 4), which the general route takes, counted in ``flash_attention.pooled``
+    besides the route.  On the card the output is the (B, H, Tq, D) view of
+    a (B, Tq, H, D) buffer.  A launch's trace key is (B, H, T, D, causal,
+    dtype), with Tk appended where it differs from Tq."""
+    if k.shape != v.shape or k.shape[:2] != q.shape[:2] or k.shape[3:] != q.shape[3:] or q.dim() != 4:
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
     b, h, t, d = q.shape
+    tk = k.shape[2]
+    if causal and tk != t:
+        raise ValueError(f"the causal mask takes as many queries as keys, got {t} and {tk}")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
     refuse_autograd("flash_attention", q, k, v)
-    route = k2_route(t, causal, d, q.dtype)
+    route = k2_route(t, causal, d, q.dtype) if tk == t else "general"
     _check_heads(b * h, route)
     (q, sq), (k, sk), (v, sv) = strided_inputs(q, k, v, route)
     o = attention_output(b, h, t, d, q.dtype, q.device)
     lib, stream = LIB.load(), torch.cuda.current_stream(q.device)
-    key = (b, h, t, d, causal, TYPE_NAMES[q.dtype])
+    key = (b, h, t, d, causal, TYPE_NAMES[q.dtype]) + ((tk,) if tk != t else ())
     if route == "general":
         launch(flash_attention, key, stream, lib.ha_flash_attention_general, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-               None, None, o.data_ptr(), *sq, *sk, *sv, b, h, t, d, 0, 0, int(causal), int(q.dtype == torch.bfloat16),
-               d**-0.5, route=route)
+               None, None, o.data_ptr(), *sq, *sk, *sv, b, h, t, tk, d, 0, 0, int(causal),
+               int(q.dtype == torch.bfloat16), d**-0.5, route=route)
+        flash_attention.pooled += int(tk != t)
     else:
         entry = lib.ha_flash_attention_resident if route == "resident" else lib.ha_flash_attention_long
         launch(flash_attention, key, stream, entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *sq, *sk,
@@ -366,4 +378,5 @@ def flash_attention(
 
 flash_attention.launches = 0
 flash_attention.routes = dict.fromkeys(("resident", "long", "general"), 0)
+flash_attention.pooled = 0  # launches with fewer queries than keys (on the general route)
 flash_attention.trace = None

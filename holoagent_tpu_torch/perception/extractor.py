@@ -5,7 +5,9 @@ generate_masks (fixed M) -> disjoint carve -> batched crop_and_resize (plain
 + masked) -> one CLIP encode over the crop stack plus the full frame -> the
 masked/plain blend and the local-vs-global softmax fusion.
 ``extract_frames_batched`` does the same for F frames with one SAM encoder
-pass and one CLIP encode over all F frames' crops.
+pass and one CLIP encode over all F frames' crops.  The segmenter is SAM or
+SAM 2 (``models/sam2.py``), whichever the caller passes: both run through
+``models/sam.py::generate_masks``.
 """
 
 from __future__ import annotations

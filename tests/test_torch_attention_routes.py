@@ -191,7 +191,7 @@ def test_wrappers_raise_only_above_the_general_head_dim(d):
 
 def test_general_kernel_entry_and_counts():
     """The general route's C entry in the source and its ctypes signature
-    (6 pointers, 9 strides, 8 ints, the scale, the stream), behind which G1
+    (6 pointers, 9 strides, 9 ints, the scale, the stream), behind which G1
     (bf16) and G2 (float32) launch; each wrapper counts its launches by
     route."""
     text = tfa.LIB.source.read_text()
@@ -199,7 +199,7 @@ def test_general_kernel_entry_and_counts():
     assert "g1_bf16_kernel" in text and "g2_tf32x3_kernel" in text and "general_kernel" not in text
     assert f"constexpr int GEN_D_MAX = {tfa.GENERAL_D_MAX};" in text
     assert f"constexpr int GEN_BQ = {tfa.GENERAL_BQ};" in text
-    assert len(tfa.LIB.signatures["ha_flash_attention_general"]) == 6 + 9 + 8 + 2
+    assert len(tfa.LIB.signatures["ha_flash_attention_general"]) == 6 + 9 + 9 + 2
     assert set(tfa.flash_attention.routes) == {"resident", "long", "general"}
     assert set(tfa.flash_attention_2d.routes) == {"resident", "global", "general"}
     assert tfa.general_grid(6, 257) == {"blocks_per_head": 5, "grid": 30, "dm": 64, "keys_per_tile": 64}

@@ -39,6 +39,7 @@ PORT_ONLY = {
     "bridge.py": "weights between the packages, numpy in and out (the tests' and the scripts' bridge)",
     "device.py": "device resolution: the card unless the caller asks for the CPU",
     "dataloader/export.py": "writes rendered frames in each loader's file layout (no dataset ships)",
+    "models/sam2.py": "SAM 2.1 with the Hiera encoder as the mapper's segmenter (the JAX package has no SAM 2)",
     "ops/_cuda_build.py": "nvcc builds of csrc/ and their ctypes bindings",
     "ops/resize.py": "jax.image.resize rebuilt as explicit weights",
     "parallel/comm.py": "the collectives in the reference's terms (GSPMD places them in JAX)",

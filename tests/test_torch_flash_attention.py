@@ -259,3 +259,49 @@ def test_k1_route_raises_for_grids_no_kernel_takes(grid):
         assert tfa.k1_route(*grid, d) == "general"
     with pytest.raises(ValueError, match="head dim"):
         tfa.k1_route(*grid, tfa.GENERAL_D_MAX + 8)
+
+
+@pytest.mark.parametrize("tq,tk", [(16, 64), (4, 16), (64, 256), (64, 64)], ids=["stage2", "stage3", "stage4", "same"])
+def test_flash_attention_ref_takes_fewer_queries_than_keys(rng, tq, tk):
+    """K2's plain version with Tq <= Tk (Hiera's pooled-query blocks, head
+    dim 72) against dense attention in float64: each query attends over
+    every key."""
+    q = torch.from_numpy(rng.normal(0, 1, (2, 3, tq, 72)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(0, 1, (2, 3, tk, 72)).astype(np.float32)) for _ in range(2))
+    out = tfa.flash_attention_ref(q, k, v)
+    p = torch.softmax(q.double() @ k.double().transpose(-1, -2) * 72**-0.5, dim=-1)
+    assert out.shape == (2, 3, tq, 72)
+    np.testing.assert_allclose(out.numpy(), (p @ v.double()).numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_k2_wrapper_cpu_path_at_pooled_queries(rng):
+    """On CPU tensors the wrapper takes the plain version at Tq != Tk too,
+    counting nothing; the causal mask refuses Tq != Tk; the keys and values
+    must agree in shape."""
+    q = torch.from_numpy(rng.normal(0, 1, (4, 2, 16, 72)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(0, 1, (4, 2, 64, 72)).astype(np.float32)) for _ in range(2))
+    n, pooled = tfa.flash_attention.launches, tfa.flash_attention.pooled
+    assert torch.equal(tfa.flash_attention(q, k, v), tfa.flash_attention_ref(q, k, v))
+    assert (tfa.flash_attention.launches, tfa.flash_attention.pooled) == (n, pooled)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, k, v, causal=True)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_ref(q, k, v, causal=True)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, k, v[:, :, :32])
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q[..., :64], k, v)
+
+
+def test_pooled_queries_take_the_general_entry():
+    """The pooled-query launches go through the general route's one C entry,
+    which takes a key count (tk) beside the query count (9 ints: b, h, t,
+    tk, d, grid_h, grid_w, causal, bf16), and refuses tk != t with the bias
+    or the causal mask; the general kernels' body takes the key count too."""
+    text = tfa.LIB.source.read_text()
+    assert "ha_flash_attention_pooled" not in text and "ha_flash_attention_pooled" not in tfa.LIB.signatures
+    assert "int b, int h, int t, int tk,\n                                          int d, int grid_h" in text
+    assert "(tk != t && (rel_pos || causal))" in text
+    assert len(tfa.LIB.signatures["ha_flash_attention_general"]) == 6 + 9 + 9 + 2
+    assert "int heads, int t,\n                                         int tk, int d" in text
+    assert tfa.k2_route(64, False, 72) == "general"  # Hiera's head dim is on the general route, G1 at DM 80
