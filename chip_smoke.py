@@ -47,8 +47,12 @@ Phases (any failure exits non-zero, with no result line):
      K2 at head dim 72 on the general route, the pooling blocks with fewer
      queries than keys) held and timed as K2's cases, with the whole frame's
      total, and NMS's grid route on SAM 2.1's decoder output at
-     points_per_side 32 (``python3 chip_smoke.py --hiera`` runs the build
-     and this phase alone);
+     points_per_side 32; then SAM 2's mask head (csrc/mask_head.cu) on
+     SAM 2.1 Hiera-L's own decoder output, 64 prompts and a ragged 17, in
+     bf16 and float32, against its plain version (MASK_HEAD_FAULTS below
+     says how it is held), timed beside its bound
+     (``python3 chip_smoke.py --hiera`` runs the build and this phase
+     alone);
   5. main paths, each with every launch count set to 0 just before it and
      read just after: Mapper.run + finalize over posed 640x480 frames of the
      synthetic three-room scene, SAM vit_b + CLIP ViT-L/14 from a seeded
@@ -254,6 +258,7 @@ from holoagent_tpu_torch.models import transformer as tfm  # noqa: E402
 from holoagent_tpu_torch.models import vlm as vlm_mod  # noqa: E402
 from holoagent_tpu_torch.nav import bt_xml  # noqa: E402
 from holoagent_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from holoagent_tpu_torch.ops import mask_head as mh_mod  # noqa: E402
 from holoagent_tpu_torch.ops import masks as masks_mod  # noqa: E402
 from holoagent_tpu_torch.ops import retrieval as retrieval_ops, solvers  # noqa: E402
 from holoagent_tpu_torch.ops.backproject import backproject  # noqa: E402
@@ -282,6 +287,11 @@ _nms_cases = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(_nms_cases)
 NMS_CASE_NAMES, NMS_FAULTS = _nms_cases.NMS_CASE_NAMES, _nms_cases.NMS_FAULTS
 clustered_boxes, nms_case, nms_with_fault = _nms_cases.clustered_boxes, _nms_cases.nms_case, _nms_cases.nms_with_fault
+# SAM 2's mask head: inputs at its widths and faulty plain versions, as the CPU tests use them
+_spec = importlib.util.spec_from_file_location(
+    "mask_head_cases", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "_mask_head_cases.py"))
+_mask_head_cases = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_mask_head_cases)
 
 # H100 SXM published peaks (dense tensor cores: bf16, int8, TF32; HBM3).
 # The general route's float32 kernel (G2) takes each product as three TF32
@@ -978,22 +988,25 @@ def hiera_case(name, b, h, tq, tk, gen):
 
 
 def hiera_in_run(sam2, frames) -> dict:
-    """Mean ms a launch, by wrapper and shape key, of K2 and NMS inside
+    """Mean ms a launch, by wrapper and shape key, of K2, NMS and the mask head inside
     ``generate_masks`` with SAM 2.1 over `frames` at points_per_side 32 (CUDA
     events around each launch: the in-run time, the wrapper's host time in
     it for short kernels)."""
     runs = collections.defaultdict(list)
-    fa.flash_attention.trace, masks_mod.nms.trace = [], []
+    traced = (fa.flash_attention, masks_mod.nms, mh_mod.mask_head)
+    for w in traced:
+        w.trace = []
     try:
         for f in frames:
             sam_mod.generate_masks(sam2, torch.as_tensor(f.rgb, dtype=torch.float32).cuda(), points_per_side=32,
                                    pred_iou_thresh=-10.0, stability_thresh=0.0, impl="flash")
         torch.cuda.synchronize()
-        for w in (fa.flash_attention, masks_mod.nms):
+        for w in traced:
             for key, a, b in w.trace:
                 runs[(w.__name__,) + tuple(key)].append(a.elapsed_time(b))
     finally:
-        fa.flash_attention.trace = masks_mod.nms.trace = None
+        for w in traced:
+            w.trace = None
     return {k: statistics.mean(v) for k, v in runs.items()}
 
 
@@ -1001,9 +1014,9 @@ def hiera_phase(sam2, frame, frames=()) -> dict:
     """Hiera-L's attention rows (HIERA_ROWS), the whole frame's total
     (each row's time times its blocks; kept under the kernel name "hiera",
     which no wrapper has), and the NMS grid route on `sam2`'s (SAM 2.1
-    Hiera-L's) decoder output at points_per_side 32 (3,072 candidates); with
-    `frames`, each row's in-run time over SAM 2.1's mask generation on
-    them."""
+    Hiera-L's) decoder output at points_per_side 32 (3,072 candidates), the
+    mask head's cases (``mask_head_phase``); with `frames`, each row's
+    in-run time over SAM 2.1's mask generation on them."""
     gen = torch.Generator().manual_seed(SEED)
     cases = {}
     total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, launches=0)
@@ -1022,6 +1035,7 @@ def hiera_phase(sam2, frame, frames=()) -> dict:
     cases.update({c["name"]: c for c in [nms_case_run("nms_sam2_hiera_l_pps32", *decoder_nms_inputs(sam2, frame, 32),
                                                       {})]})
     check(cases["nms_sam2_hiera_l_pps32"]["route"] == "grid", "SAM 2's 3,072 candidates take NMS's grid route")
+    cases.update(mask_head_phase(sam2, frame))
     if frames:
         in_run = hiera_in_run(sam2, frames)
         for c in cases.values():
@@ -1030,6 +1044,97 @@ def hiera_phase(sam2, frame, frames=()) -> dict:
                 c["in_run_ms"] = ms
                 log(f"[kernel] {c['name']}: {ms:.4f} ms a launch in SAM 2.1's mask generation over {len(frames)} frames")
         check(all("in_run_ms" in cases[name] for name, *_ in HIERA_ROWS), "a Hiera row not launched in the run")
+        check("in_run_ms" in cases["mask_head_p64_bf16"], "the mask head's 64-prompt pass not launched in the run")
+    torch.cuda.empty_cache()
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# SAM 2's mask head (csrc/mask_head.cu)
+# ---------------------------------------------------------------------------
+
+# The kernel against its plain version (ops/mask_head.py::mask_head_ref) on
+# SAM 2.1 Hiera-L's own decoder output.  In bf16 at K1/K2's rule
+# (MAX_ERR_OF_MAX, REL_RMS_TOL), for the same reason: both take bf16 tokens,
+# features and weights and sum in float32, and the plain version rounds each
+# of its steps to bf16 (8 significant bits: one ulp is at most 2^-7 of a
+# value) where the kernel rounds only after each GELU, so they part by the
+# plain version's own roundings, under one ulp rms.  That rule rejects
+# LayerNorm skipped on one sub-pixel and feat_s0 dropped.  The tanh GELU in
+# place of the erf one moves a value by less than bf16's rounding and passes
+# it (printed); the float32 cases hold it: there both sum in float32 and the
+# kernel is held to float32's precision (F32_PREC of max|ref|), which
+# rejects all three.
+MASK_HEAD_FAULTS = _mask_head_cases.MASK_HEAD_FAULTS
+
+
+def mask_head_cost(p: int, g: int, dtype):
+    """(operations, bytes) of one launch: the two upscaling products and the
+    hypernetwork product; the tokens, features, weights and hypernetwork
+    vectors read once and the float32 logits written once."""
+    ops = 2.0 * p * g * g * (256 * 256 + 4 * 64 * 128 + 16 * 32 * 4)
+    elems = p * g * g * 256 + 16 * g * g * 32 + 4 * g * g * 64 + 4 * 256 * 64 + 4 * 64 * 32 + 3 * 64 + 32 + p * 4 * 32
+    return ops, elems * dtype.itemsize + p * 4 * 16 * g * g * 4
+
+
+def mask_head_case(name, a, f32: bool) -> dict:
+    """Hold one launch against the plain version (the faults as
+    MASK_HEAD_FAULTS says), and time kernel and plain version."""
+    eps, args = sam2_mod.LN_EPS, [a[k] for k in _mask_head_cases.ARGS]
+    p, g, dt = a["src"].shape[0], a["src"].shape[1], a["src"].dtype
+    n0 = mh_mod.mask_head.launches
+    out = mh_mod.mask_head(*args, eps)
+    check(mh_mod.mask_head.launches == n0 + 1, f"{name}: not one launch")
+    ref = mh_mod.mask_head_ref(*args, eps)
+    faults = [f for f in MASK_HEAD_FAULTS if f32 or f != "tanh_gelu"]
+    res = hold(name, out, ref, [(f.replace("_", " "), _mask_head_cases.faulty_head(a, eps, f)) for f in faults], f32)
+    if not f32:
+        m = agreement(_mask_head_cases.faulty_head(a, eps, "tanh_gelu"), ref)
+        log(f"[kernel] {name}: the tanh GELU moves the logits by {m['max_abs_err']:.3e} (tol {m['tol']:.3e}), rel "
+            f"rms {m['rel_rms_err']:.3e}: under bf16's rounding, held by the float32 cases")
+    ops, nbytes = mask_head_cost(p, g, dt)
+    res.update(kernel="mask_head", key=(p, g, TYPE_NAMES[dt]), name=name, shape=f"P={p} g={g} {TYPE_NAMES[dt]}",
+               ms=time_ms(lambda: mh_mod.mask_head(*args, eps, out)),
+               plain_ms=time_ms(lambda: mh_mod.mask_head_ref(*args, eps), samples=5, reps=2), library_ms=None)
+    res["bound_ms"], res["bound_by"] = bound(ops, nbytes, PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+    log(f"[kernel] {name:22s} P={p:<3d} g={g} {TYPE_NAMES[dt]:4s}: kernel {res['ms']:.4f} ms  plain "
+        f"{res['plain_ms']:.4f} ms ({res['plain_ms'] / res['ms']:.1f}x)  bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}): {100 * res['bound_ms'] / res['ms']:.1f}% of bound; max err {res['max_abs_err']:.3e} "
+        f"(tol {res['tol']:.3e}), rel rms {res['rel_rms_err']:.3e}")
+    return res
+
+
+def decoder_head_inputs(sam2, frame) -> dict:
+    """The arguments SAM 2.1's decoder gives the mask head in its first pass
+    (64 prompts) over `frame` at points_per_side 32."""
+    seen = []
+
+    def rec(*a):
+        if not seen:
+            seen.append([t.clone() for t in a[:len(_mask_head_cases.ARGS)]])
+        return mh_mod.mask_head(*a)
+
+    sam2_mod.mask_head = rec
+    try:
+        with torch.no_grad():
+            feats = sam2.image_features(torch.as_tensor(frame.rgb, dtype=torch.float32).cuda()[None], "flash")[0]
+            sam2.decode_grid(feats, 32)
+    finally:
+        sam2_mod.mask_head = mh_mod.mask_head
+    return dict(zip(_mask_head_cases.ARGS, seen[0]))
+
+
+def mask_head_phase(sam2, frame) -> dict:
+    """The mask head on SAM 2.1 Hiera-L's first decoder pass over `frame`:
+    its 64 prompts and the first 17 (a ragged pass), each in bf16 and with
+    every input cast to float32."""
+    a = decoder_head_inputs(sam2, frame)
+    cases = {}
+    for p in (64, 17):
+        for dt in (torch.bfloat16, torch.float32):
+            name = f"mask_head_p{p}_{TYPE_NAMES[dt]}"
+            cases[name] = mask_head_case(name, {k: (v[:p] if k in ("src", "hyper") else v).to(dt).contiguous()
+                                                for k, v in a.items()}, dt == torch.float32)
     torch.cuda.empty_cache()
     return cases
 
@@ -1039,7 +1144,7 @@ def hiera_phase(sam2, frame, frames=()) -> dict:
 # ---------------------------------------------------------------------------
 
 WRAPPERS = {"flash_attention_2d": fa.flash_attention_2d, "flash_attention": fa.flash_attention,
-            "quant_matmul": qm.quant_matmul, "nms": masks_mod.nms}
+            "quant_matmul": qm.quant_matmul, "nms": masks_mod.nms, "mask_head": mh_mod.mask_head}
 
 
 @contextlib.contextmanager
@@ -1662,19 +1767,23 @@ def launches_a_keyframe(clip, sam, cfg=None) -> dict:
     way).  A batched dispatch makes the towers' launches once for its
     frames and NMS once a frame.  A SAM 2 segmenter launches no K1: one K2
     a Hiera block on the general route, the pooling blocks' counted as
-    pooled-query launches."""
+    pooled-query launches, and one mask head a decoder pass (64 prompts, 16
+    at its 32 points a side); SAM's decoder launches none."""
     layers = clip.variant.v_layers
     sam_k, clip_k = (True, True) if cfg is None else (cfg.pipeline.extract_impl == "flash",
                                                       cfg.pipeline.extract_clip_impl == "flash")
     if isinstance(sam, sam2_mod.SAM2):
         plan = sam.encoder.plan
+        pps = (cfg.models.sam.points_per_side if cfg is not None else CONFIG["models"]["sam"]["points_per_side"])
         return {"flash_attention_2d": 0, "flash_attention": len(plan) * sam_k + layers * clip_k,
                 "flash_attention.general": len(plan) * sam_k,
                 "flash_attention.pooled": sum(b.pool for b in plan) * sam_k,
-                "quant_matmul": 4 * (layers if clip.quant else 0), "nms": 1}
+                "quant_matmul": 4 * (layers if clip.quant else 0), "nms": 1,
+                "mask_head": -(-pps * pps // sam2_mod.POINTS_PER_BATCH)}
     depth = sam.variant.depth
     return {"flash_attention_2d": depth * sam_k, "flash_attention": layers * clip_k,
-            "quant_matmul": 4 * (depth if sam.quant else 0) + 4 * (layers if clip.quant else 0), "nms": 1}
+            "quant_matmul": 4 * (depth if sam.quant else 0) + 4 * (layers if clip.quant else 0), "nms": 1,
+            "mask_head": 0}
 
 
 def operating_point_path(qclip, qsam_h, ds, cfg, tag):
@@ -4069,10 +4178,11 @@ def y_phase(clip, sam, text, ds, tmp):
 
 
 def hold_new_shapes(cases, paths):
-    """A case for every K1, K2, K3 and NMS shape a path launched that no
-    case held: K1 and K2 as views of one packed projection, as _attention_2d
-    and _attend launch them; K3 as the towers' linears (k3_case); NMS as a
-    clustered draw of that many candidates."""
+    """A case for every K1, K2, K3, NMS and mask-head shape a path launched
+    that no case held: K1 and K2 as views of one packed projection, as
+    _attention_2d and _attend launch them; K3 as the towers' linears
+    (k3_case); NMS as a clustered draw of that many candidates; the mask
+    head on random inputs at its widths."""
     held = {c["key"] for c in cases.values()}
     gen = torch.Generator().manual_seed(SEED + 3)
     nms_rng = np.random.default_rng(SEED + 6)
@@ -4091,6 +4201,10 @@ def hold_new_shapes(cases, paths):
                 check(gh == gw, f"K1 launched on a {gh}x{gw} grid: no case builds it")
                 c = k1_case(f"k1_b{b}_h{heads}_g{gh}_d{d}_{dt}", b, heads, gh, gen, d=d, dtype=dtypes[dt])
                 log_attention_case(c)
+            elif kernel == "mask_head":
+                p, g, dt = key
+                c = mask_head_case(f"mask_head_p{p}_g{g}_{dt}", _mask_head_cases.head_inputs(
+                    p, g, dtypes[dt], seed=SEED + 7, device="cuda"), dt == "f32")
             elif kernel == "nms":
                 m, = key
                 scores = np.round(nms_rng.uniform(0, 1, m), 1).astype(np.float32)
@@ -4118,6 +4232,11 @@ def path_sums(cases, paths) -> None:
                 log(f"[paths] {tag}: nms {n} launches, {sum(r[1] for r in runs.values()):.4f} ms in the run; summed "
                     f"phase {sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f}, host {sums['host_ms']:.4f} ms")
                 continue
+            if name == "mask_head":  # no library call computes it
+                sums = {f: sum(r[0] * by_key[k][f] for k, r in runs.items()) for f in ("ms", "plain_ms", "bound_ms")}
+                log(f"[paths] {tag}: mask_head {n} launches, {sum(r[1] for r in runs.values()):.4f} ms in the run; "
+                    f"summed phase {sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f}, bound {sums['bound_ms']:.4f} ms")
+                continue
             sums = {f: sum(r[0] * by_key[k][f] for k, r in runs.items())
                     for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
             log(f"[paths] {tag}: {name} {n} launches, {sum(r[1] for r in runs.values()):.4f} ms in the run; summed "
@@ -4126,6 +4245,7 @@ def path_sums(cases, paths) -> None:
 
 
 SOURCE_FA = "holoagent_tpu_torch/csrc/flash_attention.cu"
+SAM2_PATH = "(k2) SAM 2.1 Hiera-L: Mapper.run"
 Z_PATH = "(z) float32 Mapper.run"
 # (wrapper, route ("tensor" for every route but "general", None for K3's
 # one), the dtype's trace name or None for any, the kernel, source, the TPU
@@ -4213,6 +4333,7 @@ def kernels_line(cases, paths):
             "cases": mine,
         })
     line.append(nms_line(by_key, cases, paths))
+    line.append(mask_head_line(by_key, cases, paths))
     return {"kernels": line}
 
 
@@ -4243,12 +4364,39 @@ def nms_line(by_key, cases, paths) -> dict:
     }
 
 
+def mask_head_line(by_key, cases, paths) -> dict:
+    """The kernels line's mask-head entry, for SAM 2.1's Mapper run (k2): one
+    launch a decoder pass; no library call computes the function."""
+    for tag, path in paths.items():
+        unchecked = [k for k in path["in_path"].get("mask_head", {}) if k not in by_key]
+        check(not unchecked, f"mask_head: the {tag} path launched shapes {unchecked} that no kernel phase held")
+    runs, nf = paths[SAM2_PATH]["in_path"]["mask_head"], paths[SAM2_PATH]["nf"]
+    launches = sum(n for n, _ in runs.values())
+    check(launches == paths[SAM2_PATH]["launches"]["mask_head"] > 0, f"mask_head: {launches} launches over {nf} keyframes")
+
+    def summed(field):
+        return sum(n * by_key[k][field] for k, (n, _) in runs.items())
+
+    mine = [c for c in cases.values() if c["kernel"] == "mask_head"]
+    return {
+        "name": "mask_head (SAM 2's mask head)", "route": "cuda", "source": "holoagent_tpu_torch/csrc/mask_head.cu",
+        "replaces": "models/sam2.py's plain head (no pallas_call: the JAX package has no SAM 2)",
+        "launches": launches, "max_abs_err": max(c["max_abs_err"] for c in mine),
+        "ms": sum(t for _, t in runs.values()), "plain_ms": summed("plain_ms"), "bound_ms": summed("bound_ms"),
+        "bound_by": "bytes", "library_ms": None, "isolated_ms": summed("ms"), "ratio_to_library": None,
+        "per": f"the counted {SAM2_PATH} run: {launches} launches over {nf} keyframes",
+        "launches_by_path": {tag: sum(n for n, _ in path["in_path"].get("mask_head", {}).values())
+                             for tag, path in paths.items()},
+        "cases": [{f: v for f, v in c.items() if f not in ("key", "kernel")} for c in mine],
+    }
+
+
 def build_all():
     """One nvcc per kernel source and the native runtime's build (one host
     compiler a source), all started together."""
     t0 = time.perf_counter()
     builds = {"flash_attention": fa.LIB.build, "quant_matmul": qm.LIB.build, "masks": masks_mod.LIB.build,
-              "native": native.build}
+              "mask_head": mh_mod.LIB.build, "native": native.build}
     with ThreadPoolExecutor(len(builds)) as ex:
         built = {name: ex.submit(build) for name, build in builds.items()}
         built = {name: f.result() for name, f in built.items()}
@@ -4346,16 +4494,16 @@ def main() -> int:
     cases.update(hiera_phase(sam2, ds[0]))
     stamp("SAM 2 Hiera-L attention phase")
     paths = {"bf16": main_path(clip, sam, ds, cfg, "main", {"flash_attention_2d": 12, "flash_attention": 24,
-                                                             "quant_matmul": 0, "nms": 1})}
-    q8_expect = {"flash_attention_2d": 12, "flash_attention": 24, "quant_matmul": 144, "nms": 1}
+                                                             "quant_matmul": 0, "nms": 1, "mask_head": 0})}
+    q8_expect = {"flash_attention_2d": 12, "flash_attention": 24, "quant_matmul": 144, "nms": 1, "mask_head": 0}
     paths["w8a8"] = main_path(qclip, qsam, ds, qcfg, "w8a8", q8_expect)
     paths["w8a8 extraction, clip_qmm=pallas"] = extraction_path(
         qclip, qsam, ds, qcfg, "w8a8-pallas", q8_expect, paths["w8a8"]["ms"].keyframe_feats)
     paths["(k) vit_h W8A8: Mapper.run"] = operating_point_path(qclip, qsam_h, ds, hcfg, "vit_h-w8a8")
     del qsam_h
-    paths["(k2) SAM 2.1 Hiera-L: Mapper.run"] = sam2_path(clip, sam2, ds, "sam2")
+    paths[SAM2_PATH] = sam2_path(clip, sam2, ds, "sam2")
     del sam2
-    paths["(k2) SAM 2.1 Hiera-L: Mapper.run"].pop("ms")
+    paths[SAM2_PATH].pop("ms")
     torch.cuda.empty_cache()
     paths.update(batched_path(clip, sam, ds, CONFIG, "batched"))
     paths["(l) batched extraction, W8A8, pairs"] = batched_w8a8_extraction(

@@ -471,10 +471,11 @@ class SAM(nn.Module):
         own features by the same method)."""
         return encode_image(self.encoder, preprocess(images01, self.variant.img_size), self.variant, impl=impl)
 
-    def decode_grid(self, emb: torch.Tensor, points_per_side: int):
+    def decode_grid(self, emb: torch.Tensor, points_per_side: int, timer: Optional[StageTimer] = None):
         """The points_per_side^2 grid of one-point prompts (plus a padding
         point each, the SAM convention) against one image embedding (g, g,
-        D): (logits (P, 4, 4g, 4g), iou_pred (P, 4)), float32."""
+        D): (logits (P, 4, 4g, 4g), iou_pred (P, 4)), float32.  `timer` is
+        unused: SAM's decoder has no span of its own inside ``mask.decoder``."""
         pe = image_pe(self.prompt, emb.shape[0]).to(emb.dtype)
         sparse = grid_prompts(self.prompt, points_per_side, emb.device).to(emb.dtype)
         return decode_masks(self.decoder, emb, pe, sparse, self.prompt.no_mask.to(emb.dtype), self.variant)
@@ -652,7 +653,7 @@ def _masks_from_embedding(sam: SAM, emb, hw: Tuple[int, int], points_per_side: i
     model's tuple) -> its fixed-budget masks (decoder, NMS, selection)."""
     mask_hw = mask_hw or tuple(hw)
     with stage(timer, "mask.decoder"):
-        logits, iou_pred = _decode_grid(sam, emb, points_per_side)
+        logits, iou_pred = _decode_grid(sam, emb, points_per_side, timer=timer)
     dev = logits.device
     with stage(timer, "mask.nms"):
         # multimask: drop token 0 (single-mask head), keep 1..3
@@ -702,12 +703,12 @@ def grid_prompts(prompt: PromptEncoder, points_per_side: int, device) -> torch.T
     return encode_points(prompt, points, labels)
 
 
-def _decode_grid(sam: SAM, emb, points_per_side: int):
+def _decode_grid(sam: SAM, emb, points_per_side: int, timer: Optional[StageTimer] = None):
     """The mask stage's decoder call: the model's ``decode_grid`` over one
     image's features (SAM's embedding or a SAM 2 model's tuple).  A module
     function, so that a caller can wrap the decoder's output in one place
     (``portbench/cells/mapping.py`` captures it there)."""
-    return sam.decode_grid(emb, points_per_side)
+    return sam.decode_grid(emb, points_per_side, timer=timer)
 
 
 # ---------------------------------------------------------------------------

@@ -22,10 +22,12 @@ Ryali et al., "Hiera", 2023, arXiv:2306.00989), the image path only:
   are not computed;
 - SAM 2's mask decoder (``sam/mask_decoder.py``): tokens [object score,
   IoU, mask tokens, prompts] through SAM's two-way transformer
-  (``models/sam.py::two_way``), upscaling ``act1(ln1(dc1(src) + feat_s1))``
-  then ``act2(dc2(.) + feat_s0)`` with the high-resolution features
-  projected by ``conv_s1`` and ``conv_s0``, the hypernetwork MLPs, a
-  sigmoid IoU head and the object-score head.  The decoder reads the
+  (``models/sam.py::two_way``), the hypernetwork MLPs, then the mask head
+  (``ops/mask_head.py``, one CUDA kernel on the card): upscaling
+  ``act1(ln1(dc1(src) + feat_s1))`` then ``act2(dc2(.) + feat_s0)`` with the
+  high-resolution features projected by ``conv_s1`` and ``conv_s0``, and the
+  product with the hypernetwork vectors; a sigmoid IoU head and the
+  object-score head.  The decoder reads the
   neck's finest kept level plus ``no_mem_embed`` (``directly_add_no_mem_
   embed``);
 - preprocessing as ``SAM2Transforms``: a square resize to ``img_size`` (not
@@ -57,10 +59,12 @@ import torch.nn.functional as F
 
 from ..device import DeviceLike, generator, resolve
 from ..ops.flash_attention import flash_attention, flash_attention_ref
+from ..ops.mask_head import mask_head
 from ..ops.resize import resize
 from ..utils.timing import StageTimer, stage
-from .sam import (MLP3, Attn, DecoderLayer, Lin, PromptEncoder, _ln, _mlp3, _param, _upscale, _window_partition,
+from .sam import (MLP3, Attn, DecoderLayer, Lin, PromptEncoder, _ln, _mlp3, _param, _window_partition,
                   _window_unpartition, grid_prompts, image_pe, init_prompt_encoder, two_way)
+from .transformer import gelu_erf
 
 IMAGE_MEAN = (0.485, 0.456, 0.406)  # SAM2Transforms' ImageNet statistics, on [0, 1]
 IMAGE_STD = (0.229, 0.224, 0.225)
@@ -259,26 +263,27 @@ class SAM2(nn.Module):
             s1 = self.decoder.conv_s1(feats[1])
         return [(emb[i], s0[i], s1[i]) for i in range(emb.shape[0])]
 
-    def decode_grid(self, feats, points_per_side: int):
+    def decode_grid(self, feats, points_per_side: int, timer: Optional[StageTimer] = None):
         """The points_per_side^2 grid of one-point prompts (each with its
         padding point) against one image's features, ``POINTS_PER_BATCH``
-        prompts a pass: (logits (P, nm, 4g, 4g), IoU (P, nm)), float32.
-        The object score is left unused, as SAM2ImagePredictor leaves it."""
+        prompts a pass, each pass writing its rows of the logits in place:
+        (logits (P, nm, 4g, 4g), IoU (P, nm)), float32.  A `timer` records
+        each pass's mask head in ``mask.decoder.head``.  The object score
+        is left unused, as SAM2ImagePredictor leaves it."""
         emb, s0, s1 = feats
         pe = image_pe(self.prompt, emb.shape[0]).to(emb.dtype)
         sparse = grid_prompts(self.prompt, points_per_side, emb.device).to(emb.dtype)
-        outs = [decode_masks(self, emb, s0, s1, pe, chunk)[:2] for chunk in sparse.split(POINTS_PER_BATCH)]
-        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+        side = 4 * emb.shape[0]
+        logits = torch.empty((sparse.shape[0], self.variant.num_mask_tokens, side, side), dtype=torch.float32,
+                             device=emb.device)
+        ious = [decode_masks(self, emb, s0, s1, pe, chunk, logits[start:start + chunk.shape[0]], timer)[1]
+                for start, chunk in zip(range(0, sparse.shape[0], POINTS_PER_BATCH), sparse.split(POINTS_PER_BATCH))]
+        return logits, torch.cat(ious)
 
 
 # ---------------------------------------------------------------------------
 # Image encoder
 # ---------------------------------------------------------------------------
-
-
-def _gelu(x: torch.Tensor) -> torch.Tensor:
-    """nn.GELU (erf), in float32, rounded to x's dtype."""
-    return F.gelu(x.float()).to(x.dtype)
 
 
 def preprocess(images01: torch.Tensor, img_size: int) -> torch.Tensor:
@@ -341,7 +346,7 @@ def hiera_block(x: torch.Tensor, blk: HieraBlock, b: BlockPlan, impl: str = "xla
         x = _window_unpartition(x, win, padded, (h, w))
     x = shortcut + x
     xn = _ln(x, blk.norm2_g, blk.norm2_b, LN_EPS)
-    return x + blk.lin2(_gelu(blk.lin1(xn)))
+    return x + blk.lin2(gelu_erf(blk.lin1(xn)))
 
 
 def position_embedding(enc: HieraEncoder, hw: Tuple[int, int]) -> torch.Tensor:
@@ -417,10 +422,12 @@ def neck(enc: HieraEncoder, levels: List[torch.Tensor], v: SAM2Variant) -> List[
 
 
 def decode_masks(sam: SAM2, emb: torch.Tensor, feat_s0: torch.Tensor, feat_s1: torch.Tensor,
-                 img_pe: torch.Tensor, prompt_tokens: torch.Tensor):
+                 img_pe: torch.Tensor, prompt_tokens: torch.Tensor, out: Optional[torch.Tensor] = None,
+                 timer: Optional[StageTimer] = None):
     """``MaskDecoder.predict_masks`` for P prompts (P, K, D) on one image:
-    (mask logits (P, nm, 4g, 4g) f32, IoU (P, nm) f32 after the sigmoid,
-    object-score logits (P, 1) f32)."""
+    (mask logits (P, nm, 4g, 4g) f32, into `out` when given, IoU (P, nm)
+    f32 after the sigmoid, object-score logits (P, 1) f32).  The mask head
+    (``ops/mask_head.py``) runs in the span ``mask.decoder.head``."""
     v, dec = sam.variant, sam.decoder
     g, d = emb.shape[0], v.decoder_dim
     p, dtype, nm = prompt_tokens.shape[0], emb.dtype, v.num_mask_tokens
@@ -429,11 +436,10 @@ def decode_masks(sam: SAM2, emb: torch.Tensor, feat_s0: torch.Tensor, feat_s1: t
     src = (emb + sam.prompt.no_mask.to(dtype)).reshape(1, g * g, d).expand(p, g * g, d)
     pos = img_pe.reshape(1, g * g, d).expand(p, g * g, d).to(dtype)
     q, src = two_way(dec, tokens, src, pos, v.decoder_heads)
-    u = _upscale(src.reshape(p, g, g, d), dec.up1_w, dec.up1_b) + feat_s1
-    u = _gelu(_ln(u, dec.up_ln_g, dec.up_ln_b, LN_EPS))
-    u = _gelu(_upscale(u, dec.up2_w, dec.up2_b) + feat_s0)  # (P, 4g, 4g, D / 8)
     hyper = torch.stack([_mlp3(hp, q[:, 2 + i]) for i, hp in enumerate(dec.hyper)], dim=1)
-    logits = torch.einsum("pnc,phwc->pnhw", hyper.float(), u.float())
+    with stage(timer, "mask.decoder.head"):
+        logits = mask_head(src.reshape(p, g, g, d), feat_s0, feat_s1, dec.up1_w, dec.up1_b, dec.up_ln_g, dec.up_ln_b,
+                           dec.up2_w, dec.up2_b, hyper, LN_EPS, out)
     iou = torch.sigmoid(_mlp3(dec.iou_head, q[:, 1]).float())
     return logits, iou, _mlp3(dec.obj_head, q[:, 0]).float()
 

@@ -48,6 +48,11 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def gelu_erf(x: torch.Tensor) -> torch.Tensor:
+    """``nn.GELU()`` (the erf form, SAM 2's), in float32, rounded to x's dtype."""
+    return F.gelu(x.float()).to(x.dtype)
+
+
 def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm in float32 (population variance) regardless of x's dtype."""
     y = F.layer_norm(x.float(), (x.shape[-1],), g.float(), b.float(), eps)

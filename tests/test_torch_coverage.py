@@ -41,6 +41,7 @@ PORT_ONLY = {
     "dataloader/export.py": "writes rendered frames in each loader's file layout (no dataset ships)",
     "models/sam2.py": "SAM 2.1 with the Hiera encoder as the mapper's segmenter (the JAX package has no SAM 2)",
     "ops/_cuda_build.py": "nvcc builds of csrc/ and their ctypes bindings",
+    "ops/mask_head.py": "SAM 2's mask head, a CUDA kernel without a Pallas counterpart (the JAX package has no SAM 2)",
     "ops/resize.py": "jax.image.resize rebuilt as explicit weights",
     "parallel/comm.py": "the collectives in the reference's terms (GSPMD places them in JAX)",
     "parallel/launch.py": "spawns the ranks of a process group (one JAX process drives every device)",
